@@ -5,12 +5,14 @@
 
 Phases, in order (any failure exits non-zero before the last line):
 
-  kernels  builds the three CUDA kernels of csrc/ (one nvcc each, all at
-           once), launches each on CUDA tensors at the main path's shapes
+  kernels  builds the four CUDA kernels of csrc/ (one nvcc each, all at
+           once), launches each on CUDA tensors at its path's shapes
            (seeded numpy inputs) and holds it against its plain torch
            version on the same tensors: exact equality, since every output
            is an integer. Times both with CUDA events (median of >= 10
-           launches after warm-up).
+           launches after warm-up). The drop-off kernel runs at the Hi-C
+           path's two shapes (L = 100, e = 4, and the 5'-gap retry's
+           L = 84), with planted junctions so that lanes stop early.
   path     the paired-end --device BED flow at realistic scale: simulates a
            ~141 Mb one-chromosome genome and 100,000 pairs, builds the
            index with the port's CLI (-i), and maps in-process four times
@@ -19,9 +21,20 @@ Phases, in order (any failure exits non-zero before the last line):
            again with the seeder resident, host again. All four BED files
            must be byte-equal, at least one chunk must be seeded on the
            device, and every kernel must launch in the main path's run.
-  chunk    one 16384-pair chunk of that data seeded by the port on CUDA
-           and by its plain path on the CPU: the downloads must be
-           byte-equal.
+  hic      the Hi-C flow (--preset hic: e = 4, MAPQ 1, split alignment,
+           pairs output, low-memory mode) on the same genome and index.
+           hic_r1.fq / hic_r2.fq are the path's pairs with bases 60-99 of
+           every fourth read 1 replaced by 40 bases from a seeded random
+           place of the genome (ligation-junction reads, so the drop-off
+           kernel's early stop and the 5'-gap retry fire). Maps in turns
+           host-only, CUDA device seeding (the Hi-C path's run, launches
+           counted from 0), device again with the seeder resident. The
+           three .pairs files must be byte-equal and non-empty, a chunk
+           must be seeded on the device, and the minimizer, cluster and
+           drop-off kernels must each launch.
+  chunk    one 16384-pair chunk of the path's data, and one of the Hi-C
+           reads in split mode, seeded by the port on CUDA and by its
+           plain path on the CPU: the downloads must be byte-equal.
 
 It prints the card (nvidia-smi name and power limit) first and again
 before the JSON line of per-kernel numbers, and as its last line
@@ -56,7 +69,12 @@ REPLACES = {
     "dense_minimizer": "chromap_tpu/ops/pallas_dense.py:157",
     "myers": "chromap_tpu/ops/pallas_myers.py:39",
     "cluster_scan": "chromap_tpu/ops/device_seed.py:227",
+    "myers_dropoff": "chromap_tpu/ops/pallas_myers.py:221",
 }
+KERNEL_SOURCES = (("dense_minimizer", "dense_minimizer.cu"),
+                  ("myers", "myers.cu"),
+                  ("cluster_scan", "cluster_scan.cu"),
+                  ("myers_dropoff", "myers_dropoff.cu"))
 
 
 def log(msg: str) -> None:
@@ -164,6 +182,48 @@ def myers_cost(L: int, N: int, e: int):
     return nbytes, ops
 
 
+def kernel_inputs_dropoff(rng, L: int, N: int, e: int):
+    """Split candidates: half near copies (a few substitutions, some
+    with an indel), a quarter spliced at a ligation junction (unrelated
+    sequence from a random base on, so the lane stops there), a quarter
+    unrelated."""
+    import numpy as np
+    import torch
+    pats = rng.integers(0, 4, (N, L + 2 * e)).astype(np.int32)
+    pats[rng.random(pats.shape) < 0.002] = 4
+    texts = pats[:, e:e + L].copy()
+    kind = rng.integers(0, 4, N)
+    nsub = rng.integers(0, e + 2, N)
+    for n in np.flatnonzero(kind <= 1):
+        for _ in range(nsub[n]):
+            texts[n, rng.integers(0, L)] = rng.integers(0, 4)
+        if rng.random() < 0.2:
+            q = rng.integers(1, L - 1)
+            texts[n, q:] = pats[n, e + q + 1:e + L + 1]
+    junction = rng.integers(0, L, N)
+    spliced = ((np.arange(L)[None, :] >= junction[:, None])
+               & (kind == 2)[:, None])
+    texts[spliced] = rng.integers(0, 4, int(spliced.sum()))
+    far = kind == 3
+    texts[far] = rng.integers(0, 4, (int(far.sum()), L))
+    return (torch.from_numpy(np.ascontiguousarray(pats.T)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(texts.T)).cuda())
+
+
+def dropoff_cost(rml, L: int, e: int):
+    """(bytes, 32-bit ops) of one drop-off pass on these inputs: a lane
+    that stops at step i has read the 2e init rows and i + 1 rows of
+    each operand (rml = i), one that never stops L rows."""
+    import torch
+    N = rml.shape[0]
+    steps = int(torch.clamp(rml.to(torch.int64) + 1, max=L).sum().item())
+    nbytes = 4 * (2 * e * N + 2 * steps) + 4 * 3 * N
+    # per row ~34 (the Myers step, the violation test and the Peq
+    # update); the 2e init rows ~10 and the 2e-cell band scan ~8 each
+    ops = steps * 34 + N * (2 * e * 10 + 2 * e * 8 + 8)
+    return nbytes, ops
+
+
 def kernel_inputs_cluster(rng, H: int, B: int):
     import numpy as np
     import torch
@@ -263,6 +323,22 @@ def phase_kernels(results: dict) -> None:
         lambda: ds.cluster_scan_plain(words, mm, req, e),
         cluster_cost(H, B), lambda o: f"emitted={int(o[0].sum())}")
 
+    # kernel D at the Hi-C path's shapes: the primary pass over the whole
+    # read, then the 5'-gap retry over rows g.. of the same planes
+    e = 4
+    g = 20 - e
+    p, t = kernel_inputs_dropoff(rng, L, N, e)
+    for key, pp, tt, ln in (("myers_dropoff", p, t, L),
+                            ("myers_dropoff_retry", p[g:], t[g:], L - g)):
+        rml = my.myers_dropoff_plain(pp, tt, e, ln)[2]
+        results[key] = check_kernel(
+            f"kernel D myers_dropoff N={N} L={ln} e={e}", my.myers_dropoff,
+            lambda: my.myers_dropoff(pp, tt, e, ln),
+            lambda: my.myers_dropoff_plain(pp, tt, e, ln),
+            dropoff_cost(rml, ln, e),
+            lambda o: f"stopped_early={int((o[2] < ln).sum())} "
+                      f"negated={int((o[1] < 0).sum())}")
+
 
 # ---------------------------------------------------------------------
 # phase: path
@@ -270,8 +346,15 @@ def phase_kernels(results: dict) -> None:
 
 def make_data(genome_core: int, pairs: int) -> None:
     marker = os.path.join(DATA, f"ready_{genome_core}_{pairs}")
-    if os.path.exists(marker):
-        return
+    if not os.path.exists(marker):
+        for name in ("hic_r1.fq", "hic_r2.fq"):   # made from the old reads
+            if os.path.exists(os.path.join(DATA, name)):
+                os.remove(os.path.join(DATA, name))
+        make_path_data(genome_core, pairs, marker)
+    make_hic_reads()
+
+
+def make_path_data(genome_core: int, pairs: int, marker: str) -> None:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from simulate import write_simulated_dataset
     os.makedirs(DATA, exist_ok=True)
@@ -297,21 +380,69 @@ def make_data(genome_core: int, pairs: int) -> None:
         f.write("ok")
 
 
-def map_once(use_device: bool, out: str):
+HIC_JUNCTION = 60   # read-1 bases from here on come from elsewhere
+
+
+def make_hic_reads() -> None:
+    """hic_r1.fq / hic_r2.fq: the path's pairs, with bases 60.. of every
+    fourth read 1 replaced by as many bases from a seeded random place of
+    the genome -- a ligation junction inside the read, as Hi-C's
+    chimeric reads carry. Read 2 is unchanged."""
+    import shutil
+
+    import numpy as np
+    out1 = os.path.join(DATA, "hic_r1.fq")
+    out2 = os.path.join(DATA, "hic_r2.fq")
+    if os.path.exists(out1) and os.path.exists(out2):
+        return
+    t0 = time.time()
+    with open(os.path.join(DATA, "ref.fa"), "rb") as f:
+        first = f.read().split(b">")[1]
+    genome = first.split(b"\n", 1)[1].replace(b"\n", b"").upper()
+    with open(os.path.join(DATA, "r1.fq"), "rb") as f:
+        lines = f.read().split(b"\n")
+    nrec = len(lines) // 4
+    rng = np.random.default_rng(11)
+    spliced = 0
+    for r in range(0, nrec, 4):
+        seq = lines[4 * r + 1]
+        n = len(seq) - HIC_JUNCTION
+        if n <= 0:
+            continue
+        st = int(rng.integers(0, len(genome) - n))
+        lines[4 * r + 1] = seq[:HIC_JUNCTION] + genome[st:st + n]
+        spliced += 1
+    with open(out1 + ".tmp", "wb") as f:
+        f.write(b"\n".join(lines))
+    shutil.copyfile(os.path.join(DATA, "r2.fq"), out2)
+    os.replace(out1 + ".tmp", out1)
+    log(f"hic reads: {spliced} of {nrec} read-1s spliced at base "
+        f"{HIC_JUNCTION} in {time.time() - t0:.1f}s")
+
+
+def map_once(use_device: bool, out: str, preset: str | None = None,
+             reads: str = "r"):
+    """One in-process mapping run of `reads`1.fq / `reads`2.fq. Without a
+    preset: BED with `-l 2000`; with one: the CLI's `--preset` defaults.
+    The candidate cache is off in every run (--device turns it off)."""
     import contextlib
     import io
 
-    from chromap_tpu_torch.config import MappingConfig
+    from chromap_tpu_torch.config import MappingConfig, apply_preset
     from chromap_tpu_torch.pipeline import MappingPipeline
 
     cfg = MappingConfig(
         reference_file_path=os.path.join(DATA, "ref.fa"),
         index_file_path=os.path.join(DATA, "index"),
-        read_file1_paths=[os.path.join(DATA, "r1.fq")],
-        read_file2_paths=[os.path.join(DATA, "r2.fq")],
-        mapping_output_file_path=out, max_insert_size=2000,
+        read_file1_paths=[os.path.join(DATA, f"{reads}1.fq")],
+        read_file2_paths=[os.path.join(DATA, f"{reads}2.fq")],
+        mapping_output_file_path=out,
         use_device=use_device, torch_device="cuda", cache_off=True,
         device_batch_size=16384, num_threads=os.cpu_count() or 1)
+    if preset is None:
+        cfg.max_insert_size = 2000
+    else:
+        apply_preset(cfg, preset)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         t0 = time.time()
@@ -387,17 +518,114 @@ def phase_path(results: dict, genome_core: int, pairs: int) -> None:
 
 
 # ---------------------------------------------------------------------
+# phase: hic
+# ---------------------------------------------------------------------
+
+def phase_hic(results: dict, pairs: int) -> None:
+    import torch
+    from chromap_tpu_torch.ops import dense_minimizer as dm
+    from chromap_tpu_torch.ops import device_seed as ds
+    from chromap_tpu_torch.ops import myers as my
+    from chromap_tpu_torch.pipeline import MappingPipeline
+
+    # runs in turns: host, device (the Hi-C path's run: launch counts
+    # from 0 just before, read just after; it builds the split seeder),
+    # device again with the seeder resident
+    names = ("host", "device", "device_warm")
+    paths = {n: os.path.join(DATA, f"hic_{n}.pairs") for n in names}
+    walls, logs, mapper = {}, {}, {}
+    # the wall inside _map_pairs_hybrid (device seeding, the native
+    # finish, and the CPU chunks) against the rest of the records flow
+    # (FASTQ records, one PairsRecord per mapping, low-memory spill and
+    # merge, writing)
+    hybrid = MappingPipeline._map_pairs_hybrid
+    spent = [0.0]
+
+    def timed(self, *a, **kw):
+        t0 = time.time()
+        try:
+            return hybrid(self, *a, **kw)
+        finally:
+            spent[0] += time.time() - t0
+
+    def run(name: str, use_device: bool) -> None:
+        spent[0] = 0.0
+        MappingPipeline._map_pairs_hybrid = timed
+        try:
+            _, walls[name], logs[name] = map_once(use_device, paths[name],
+                                                  "hic", "hic_r")
+        finally:
+            MappingPipeline._map_pairs_hybrid = hybrid
+        mapper[name] = spent[0]
+
+    run("host", False)
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"dense_minimizer": dm.dense_minimizer, "myers": my.myers,
+                "cluster_scan": ds.cluster_scan,
+                "myers_dropoff": my.myers_dropoff}
+    for fn in wrappers.values():
+        fn.launches = 0
+    run("device", True)
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    seeder = next(iter(ds._seeder_cache.values()))
+    st = dict(seeder.stats)
+    run("device_warm", True)
+    reads = 2 * pairs
+    log("hic: map wall (reads/s): " + " | ".join(
+        f"{n} {walls[n]:.3f}s ({reads / walls[n]:.0f})" for n in names)
+        + "; the first device run includes the split seeder's build and "
+        "index upload")
+    log("hic: of which in _map_pairs_hybrid (seeding, native finish, CPU "
+        "chunks): " + " | ".join(
+            f"{n} {mapper[n]:.3f}s" for n in names)
+        + "; the rest is the Python records flow")
+    fb = st["fallback_rows"] / st["rows"] if st["rows"] else 0.0
+    log(f"hic: seeder split={seeder.split} e={seeder.e}; device chunks "
+        f"{st['chunks']} of {-(-pairs // 16384)} (over budget, mapped on "
+        f"host: {st['over_chunks']}); rows seeded {st['rows']}, flagged "
+        f"FLAG_FALLBACK {st['fallback_rows']} ({100 * fb:.3f}%)")
+    log(f"hic: launches on the Hi-C path {json.dumps(launches)}")
+    log(f"hic: peak device memory allocated {peak / 2**20:.1f} MiB")
+    if "Using CUDA device seeding" not in logs["device"]:
+        raise AssertionError("the Hi-C device run did not seed on CUDA:\n"
+                             + logs["device"][-3000:])
+    outs = {}
+    for n in names:
+        with open(paths[n], "rb") as f:
+            outs[n] = f.read()
+    same = len(set(outs.values())) == 1
+    records = sum(1 for line in outs["host"].splitlines()
+                  if not line.startswith(b"#"))
+    log(f"hic: pairs bytes {len(outs['host'])} in all three runs: {same}, "
+        f"records={records}")
+    if not same:
+        raise AssertionError("a device .pairs differs from the host-only one")
+    if not outs["host"]:
+        raise AssertionError("no pairs written")
+    if st["chunks"] - st["over_chunks"] < 1:
+        raise AssertionError("no Hi-C chunk was seeded on the device")
+    for name in ("dense_minimizer", "cluster_scan", "myers_dropoff"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "Hi-C path")
+    if not seeder.split or launches["myers"]:
+        raise AssertionError("the Hi-C path did not seed in split mode")
+    results["hic_launches"] = launches
+
+
+# ---------------------------------------------------------------------
 # phase: chunk
 # ---------------------------------------------------------------------
 
-def read_chunk(pairs: int):
+def read_chunk(pairs: int, reads: str = "r"):
     import numpy as np
     tbl = np.full(256, 4, np.uint8)
     for i, c in enumerate(b"ACGT"):
         tbl[c] = i
     rows = []
-    with open(os.path.join(DATA, "r1.fq"), "rb") as f1, \
-            open(os.path.join(DATA, "r2.fq"), "rb") as f2:
+    with open(os.path.join(DATA, f"{reads}1.fq"), "rb") as f1, \
+            open(os.path.join(DATA, f"{reads}2.fq"), "rb") as f2:
         for _ in range(pairs):
             for f in (f1, f2):
                 f.readline()
@@ -409,25 +637,34 @@ def read_chunk(pairs: int):
 
 
 def phase_chunk(results: dict) -> None:
-    import numpy as np
-    import torch
     from chromap_tpu_torch.index.index import MinimizerIndex
     from chromap_tpu_torch.io.fastx import load_all_sequences
-    from chromap_tpu_torch.ops import device_seed as ds
 
     index = MinimizerIndex.load(os.path.join(DATA, "index"))
     ref_seqs = [bytes(r.seq) for r in
                 load_all_sequences(os.path.join(DATA, "ref.fa"))]
-    codes = read_chunk(16384)
+    # the BED path's chunk (e = 8), then the Hi-C path's in split mode
+    # (e = 4, drop-off verification with the 5'-gap retry)
+    chunk_once("chunk", index, ref_seqs, "r", 8, False)
+    chunk_once("chunk hic", index, ref_seqs, "hic_r", 4, True)
+
+
+def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
+               split: bool) -> None:
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.ops import device_seed as ds
+
+    codes = read_chunk(16384, reads)
     B, L = codes.shape
     rw = ds._pack_reads(codes)
     outs = {}
     for dev in ("cuda", "cpu"):
-        seeder = ds.DeviceSeeder(index, ref_seqs, 8, 2, (500, 1000),
-                                 device=dev)
-        if dev == "cuda":
+        seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
+                                 device=dev, split=split)
+        if dev == "cuda" and not split:
             tier = {torch.int32: "u32", torch.int64: "u64"}
-            log(f"chunk: index tiers offcnt {tier[seeder.offcnt.dtype]}, "
+            log(f"{label}: index tiers offcnt {tier[seeder.offcnt.dtype]}, "
                 f"occurrences {tier[seeder.occurrences.dtype]} "
                 f"({seeder.hash_keys.numel()} keys, "
                 f"{seeder.occurrences.numel()} occurrences)")
@@ -437,7 +674,7 @@ def phase_chunk(results: dict) -> None:
         dt = time.time() - t0
         (dl, full, _, _), _, _ = h
         outs[dev] = (dl.cpu().numpy().tobytes(),
-                     full.cpu().numpy().tobytes(), r[3])
+                     full.cpu().numpy().tobytes(), r)
         if dev == "cuda":
             steps = []
             for _ in range(5):
@@ -446,24 +683,36 @@ def phase_chunk(results: dict) -> None:
                 seeder.resolve(seeder.submit_packed(rw, B, L))
                 steps.append(time.time() - t0)
             step_s = statistics.median(steps)
-            log(f"chunk: CUDA step (submit+resolve) {1e3 * step_s:.2f} ms "
-                f"median of 5 ({B} rows, L={L}); first call {1e3 * dt:.1f} "
-                f"ms")
-            profile_step(seeder, rw, B, L)
+            log(f"{label}: CUDA step (submit+resolve) {1e3 * step_s:.2f} ms "
+                f"median of 5 ({B} rows, L={L}, e={e}, split={split}); "
+                f"first call {1e3 * dt:.1f} ms")
+            profile_step(seeder, rw, B, L, label)
             del seeder
             torch.cuda.empty_cache()
         else:
-            log(f"chunk: CPU plain step {1e3 * dt:.1f} ms")
+            log(f"{label}: CPU plain step {1e3 * dt:.1f} ms")
     same = outs["cuda"][:2] == outs["cpu"][:2]
     total = int(np.frombuffer(outs["cuda"][0][:4], np.uint32)[0])
-    log(f"chunk: (dl, full) CUDA vs CPU plain byte-equal={same} "
-        f"candidates={total} batch_over={outs['cuda'][2]}")
+    res = outs["cuda"][2]
+    log(f"{label}: (dl, full) CUDA vs CPU plain byte-equal={same} "
+        f"candidates={total} batch_over={res[3]}")
     if not same:
-        raise AssertionError("CUDA chunk download differs from the CPU "
-                             "plain path")
+        raise AssertionError(f"{label}: CUDA chunk download differs from "
+                             "the CPU plain path")
+    if split:
+        if res[3]:
+            raise AssertionError(f"{label}: the chunk went over budget")
+        # primary read_mapping_length: bits 17..24 of the split word
+        rml0 = (res[2][1] >> np.uint64(17)) & np.uint64(0xFF)
+        share = float(np.mean(rml0 < L)) if rml0.size else 0.0
+        log(f"{label}: candidates whose primary drop-off pass stopped "
+            f"early (rml < L): {int((rml0 < L).sum())} of {rml0.size} "
+            f"({100 * share:.2f}%)")
+        if share <= 0:
+            raise AssertionError(f"{label}: no drop-off lane stopped early")
 
 
-def profile_step(seeder, rw, B: int, L: int) -> None:
+def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
     """Kernel time of one seeding step by kernel name (torch.profiler),
     and the device's busy share of the step's wall time."""
     import torch
@@ -481,24 +730,29 @@ def profile_step(seeder, rw, B: int, L: int) -> None:
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     if not rows:
-        log("chunk profile: no device time recorded")
+        log(f"{label} profile: no device time recorded")
         return
     rows.sort(reverse=True)
     tot = sum(r[0] for r in rows) / 1e3
-    log(f"chunk profile: {tot:.3f} ms of kernels in {sum(r[1] for r in rows)}"
+    launches = sum(r[1] for r in rows)
+    log(f"{label} profile: {tot:.3f} ms of kernels in {launches}"
         f" launches over a {wall_ms:.2f} ms step (device busy "
         f"{100 * tot / wall_ms:.1f}%, idle {100 - 100 * tot / wall_ms:.1f}%;"
         f" the profiler's own overhead included); top kernels:")
-    for us, n, key in rows[:14]:
-        log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / tot:5.1f}%  x{n:<4d} "
-            f"{key[:100]}")
+    # the top kernels, then the hand-written ones further down
+    own = ("dense_minimizer_kernel", "myers_kernel", "myers_dropoff_kernel",
+           "cluster_scan_kernel")
+    for i, (us, n, key) in enumerate(rows):
+        if i < 14 or any(k in key for k in own):
+            log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / tot:5.1f}%  "
+                f"x{n:<4d} {key[:100]}")
 
 
 # ---------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,path,chunk")
+    ap.add_argument("--phases", default="kernels,path,hic,chunk")
     ap.add_argument("--genome-core", type=int, default=96_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
@@ -540,7 +794,7 @@ def main() -> int:
     # the data (simulation + the port's index build) is made by a child
     # process while this one builds and checks the kernels
     data = None
-    if "path" in phases or "chunk" in phases:
+    if {"path", "hic", "chunk"} & set(phases):
         data = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--make-data",
              "--genome-core", str(args.genome_core),
@@ -565,6 +819,7 @@ def main() -> int:
             ok = False
     for name, fn in (("path", lambda: phase_path(results, args.genome_core,
                                                  args.pairs)),
+                     ("hic", lambda: phase_hic(results, args.pairs)),
                      ("chunk", lambda: phase_chunk(results))):
         if ok and name in phases:
             try:
@@ -577,11 +832,13 @@ def main() -> int:
         log("chip_smoke: FAILED")
         return 1
 
-    launches = results.get("launches", {})
+    # launches: the drop-off kernel's from the Hi-C path's run, the
+    # others' from the BED path's run
+    launches = dict(results.get("launches", {}))
+    launches["myers_dropoff"] = results.get("hic_launches", {}).get(
+        "myers_dropoff", 0)
     kern = []
-    for name, src in (("dense_minimizer", "dense_minimizer.cu"),
-                      ("myers", "myers.cu"),
-                      ("cluster_scan", "cluster_scan.cu")):
+    for name, src in KERNEL_SOURCES:
         r = results.get(name, {})
         kern.append({"name": name, "route": "cuda",
                      "source": f"chromap_tpu_torch/csrc/{src}",

@@ -16,7 +16,9 @@ on the device, what the native finish stage needs per read:
   clustering   kernel C (`cluster_scan`): the exact sequential cluster
                loop (candidate_processor.cc:283-342), one read per thread
   verification kernel B (ops/myers.py): banded Myers edit distance over
-               every candidate
+               every candidate; in split mode (Hi-C) kernel D instead,
+               drop-off Myers (ops/myers.py `myers_dropoff`), twice per
+               candidate: the whole read and the read past a 5' gap
 
 The stages between the kernels are torch library ops (sort, cumsum,
 gather, scatter, index_add_) on flat arrays, shaped exactly like the JAX
@@ -44,7 +46,7 @@ import torch
 
 from . import _build
 from .dense_minimizer import dense_minimizer
-from .myers import myers
+from .myers import myers, myers_dropoff
 from .u64 import (M32, MAX64, MIN32, MIN64, UMAX64, from_numpy_u32,
                   from_numpy_u64, i32_bits, mask_bits, searchsorted_u64,
                   sort_u64, srl64, u32_of)
@@ -291,10 +293,20 @@ def _gather_read_rows(packed, nmask, rows, L: int):
 # the step
 # ---------------------------------------------------------------------
 
+def _pack_dropoff(err, end, rml):
+    """One drop-off result in 25 bits: err (clipped to 0..127), the sign
+    of end << 7, min(|end|, 511) << 8, rml (clipped to 0..255) << 17."""
+    return (torch.clamp(err, 0, 127).to(I64)
+            | ((end < 0).to(I64) << 7)
+            | (torch.clamp(end.abs(), max=511).to(I64) << 8)
+            | (torch.clamp(rml, 0, 255).to(I64) << 17))
+
+
 def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
-                num_refs: int):
-    """Returns the batch step (non-split mode); the index/reference
-    tensors are arguments, as in the JAX program."""
+                num_refs: int, split: bool = False):
+    """Returns the batch step; the index/reference tensors are arguments,
+    as in the JAX program. `split` verifies with drop-off Myers (Hi-C)
+    instead of banded Myers."""
 
     def step(rw, lengths, hash_keys, offcnt, occurrences,
              ref_words, ref_nwords, ref_lens, ref_offsets, *,
@@ -512,15 +524,37 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         patterns = _gather_ref_windows(ref_words, ref_nwords, pstart,
                                        L + 2 * e, captot)
         tex = _gather_read_rows(packed, nmask, sc_row, L)
-        tex_rev = tex.flip(1)
-        rc = torch.where(tex_rev < 4, tex_rev ^ 3, tex_rev)
-        text_sel = torch.where((cneg == 1)[:, None], rc, tex)
-        err, endp = myers(patterns.T.contiguous(), text_sel.T.contiguous(),
-                          e, L)
-        # err clamps at e+1 (only <= e is ever consumed); endp is
-        # band-relative (end - (L-1) in [0, 2e])
-        err_p = torch.clamp(err, 0, e + 1).to(I64)
-        endp_p = torch.clamp(endp - (L - 1), 0, 2 * e).to(I64)
+        negm = (cneg == 1)[:, None]
+        if split:
+            # split (drop-off) verification (draft_mapping_generator.cc:
+            # 410-555): per candidate, the drop-off kernel from the
+            # matching read end plus the unconditional 5'-gap retry.
+            # Dropoff3End(p, t) == Dropoff(reverse(p), reverse(t)), and
+            # reverse(neg_read) == complement(read), so negative
+            # candidates take the same forward kernel over reversed
+            # windows and complemented (unreversed) read codes; the retry
+            # is the kernel over the planes' rows g.. (a leading-dim
+            # slice: contiguous, no copy)
+            patterns0_T = torch.where(negm, patterns.flip(1),
+                                      patterns).T.contiguous()
+            texts0_T = torch.where(negm & (tex < 4), tex ^ 3,
+                                   tex).T.contiguous()
+            g = 20 - e  # allow_gap_beginning
+            primary = myers_dropoff(patterns0_T, texts0_T, e, L)
+            retry = myers_dropoff(patterns0_T[g:], texts0_T[g:], e, L - g)
+            cand2 = _pack_dropoff(*primary) | (_pack_dropoff(*retry) << 25)
+            cand2 = torch.where(sel_real, cand2, 0)
+            err_p = endp_p = 0
+        else:
+            tex_rev = tex.flip(1)
+            rc = torch.where(tex_rev < 4, tex_rev ^ 3, tex_rev)
+            text_sel = torch.where(negm, rc, tex)
+            err, endp = myers(patterns.T.contiguous(),
+                              text_sel.T.contiguous(), e, L)
+            # err clamps at e+1 (only <= e is ever consumed); endp is
+            # band-relative (end - (L-1) in [0, 2e])
+            err_p = torch.clamp(err, 0, e + 1).to(I64)
+            endp_p = torch.clamp(endp - (L - 1), 0, 2 * e).to(I64)
 
         # ---- packed outputs -------------------------------------------------
         flags = (fallback.to(I64) * FLAG_FALLBACK
@@ -534,21 +568,28 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
                 | (endp_p << 59))
         cand = torch.where(sel_real, cand, 0)
         batch_over = (total_hits > Htot) | (total_cands > captot)
-        # download: ONE stream [total, over, meta(B), cand32(2*dlcap)];
+        # download: ONE stream [total, over, meta(B), cand32(upc*dlcap)];
         # the full candidate stream is the second array, read only for
         # chunks whose total exceeds the download cap
         dlcap = (captot * DL_CANDS_PER_READ) // CANDS_PER_READ
         header = torch.stack([total_cands.to(I32), batch_over.to(I32)])
-        cand32 = cand.contiguous().view(I32)     # (lo, hi) u32 per word
+        if split:
+            # split candidates carry a second u64 (the packed drop-off
+            # results); interleaved, each candidate is 4 consecutive u32s
+            cand32 = torch.stack([cand, cand2], 1).view(I32).reshape(-1)
+            upc = 4
+        else:
+            cand32 = cand.contiguous().view(I32)  # (lo, hi) u32 per word
+            upc = 2
         return (torch.cat([header, i32_bits(read_meta),
-                           cand32[:2 * dlcap]]), cand32)
+                           cand32[:upc * dlcap]]), cand32)
 
     return step
 
 
 @functools.lru_cache(maxsize=8)
-def _cached_step(k, w, e, f0, f1, min_seeds, num_refs):
-    return _build_step(k, w, e, f0, f1, min_seeds, num_refs)
+def _cached_step(k, w, e, f0, f1, min_seeds, num_refs, split=False):
+    return _build_step(k, w, e, f0, f1, min_seeds, num_refs, split)
 
 
 def unpack_download(meta32: np.ndarray, cand64: np.ndarray, L: int):
@@ -698,11 +739,8 @@ class DeviceSeeder:
     def __init__(self, index, ref_seqs, error_threshold: int,
                  min_num_seeds: int, max_seed_frequencies,
                  device="cuda", split: bool = False):
-        if split:
-            raise NotImplementedError(
-                "split (drop-off) device seeding is not yet ported to "
-                "chromap_tpu_torch")
         self.device = resolve_device(device)
+        self.split = bool(split)
         self.k = int(index.kmer_size)
         self.w = int(index.window_size)
         self.e = int(error_threshold)
@@ -729,7 +767,8 @@ class DeviceSeeder:
         # host), and their rows, of which flagged FLAG_FALLBACK
         self.stats = dict(chunks=0, over_chunks=0, rows=0, fallback_rows=0)
         self._step = _cached_step(self.k, self.w, self.e, self.f0, self.f1,
-                                  self.min_num_seeds, self.num_refs)
+                                  self.min_num_seeds, self.num_refs,
+                                  self.split)
 
     def submit(self, codes: np.ndarray, lengths: np.ndarray):
         """Dispatch one batch of (B, L) u8 codes; returns an opaque
@@ -784,8 +823,10 @@ class DeviceSeeder:
         """Blocks on a submitted batch. Returns (read_meta u64 (B,),
         cand_pos u64, cand_meta u32, batch_overflow) in the wide
         DevSeedView layout the C++ finish stage consumes; candidates are
-        row-major (read, strand, position-order). Safe to call from
-        another thread than the one that submitted."""
+        row-major (read, strand, position-order). In split mode cand_meta
+        is the tuple (cand_meta, cand_split u64) for the split-aware
+        finish. Safe to call from another thread than the one that
+        submitted."""
         (dl_host, full, B, event), captot, L = handle
         if event is not None:
             event.synchronize()
@@ -801,10 +842,17 @@ class DeviceSeeder:
         self.stats["fallback_rows"] += int(
             np.count_nonzero((meta32 >> 17) & FLAG_FALLBACK))
         dlcap = (captot * DL_CANDS_PER_READ) // CANDS_PER_READ
+        upc = 4 if self.split else 2  # u32s per candidate
         if total <= dlcap:
-            cand64 = dl_np[2 + B:2 + B + 2 * total].view(np.uint64)
+            cand64 = dl_np[2 + B:2 + B + upc * total].view(np.uint64)
         else:
-            cand64 = full[:2 * total].cpu().numpy().view(np.uint64)
+            cand64 = full[:upc * total].cpu().numpy().view(np.uint64)
+        if self.split:
+            # interleaved (cand, split-ext) u64 pairs
+            meta_np, pos_np, cmeta_np = unpack_download(
+                meta32, cand64[0::2], L)
+            return (meta_np, pos_np,
+                    (cmeta_np, np.ascontiguousarray(cand64[1::2])), False)
         meta_np, pos_np, cmeta_np = unpack_download(meta32, cand64, L)
         return meta_np, pos_np, cmeta_np, False
 

@@ -76,6 +76,37 @@ def test_myers_kernel_equals_plain(card, e):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("e,L,n", [(0, 61, 1000), (1, 100, 4097),
+                                   (4, 100, 65536), (4, 84, 65536),
+                                   (8, 150, 5000), (15, 60, 3001)])
+def test_myers_dropoff_kernel_equals_plain(card, e, L, n):
+    """Drop-off kernel against its plain version: near copies, reads that
+    turn into unrelated sequence at a junction (lanes stop early), N bases
+    on both sides, a mismatch at base 0, N not a multiple of the block;
+    also over the row slice [g:] that the 5'-gap retry passes."""
+    rng = np.random.default_rng(100 + e)
+    pats = rng.integers(0, 4, (L + 2 * e, n)).astype(np.int32)
+    pats[rng.random(pats.shape) < 0.003] = 4
+    texts = pats[e:e + L].copy()
+    flip = rng.random((L, n)) < 0.02
+    texts[flip] = rng.integers(0, 5, int(flip.sum()))
+    junction = rng.integers(0, L, n)
+    rows = np.arange(L)[:, None]
+    spliced = (rows >= junction[None, :]) & (np.arange(n) % 3 == 0)
+    texts[spliced] = rng.integers(0, 4, int(spliced.sum()))
+    texts[0, 1::7] = (pats[e, 1::7] + 1) % 4
+    pt, tt = torch.from_numpy(pats).to(card), torch.from_numpy(texts).to(card)
+    g = 20 - e
+    for p, t, ln in ((pt, tt, L), (pt[g:], tt[g:], L - g)):
+        before = my.myers_dropoff.launches
+        got = my.myers_dropoff(p, t, e, ln)
+        assert my.myers_dropoff.launches == before + 1
+        want = my.myers_dropoff_plain(p, t, e, ln)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool((got[2] < ln).any()) and bool((got[2] == ln).any())
+
+
 @pytest.mark.parametrize("e", [0, 8])
 def test_cluster_kernel_equals_plain(card, e):
     rng = np.random.default_rng(20 + e)
@@ -161,3 +192,35 @@ def test_seeder_card_equals_cpu(card, small_world, monkeypatch, B, L,
     assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
     for a, b in zip(outs[0][2][:3], outs[1][2][:3]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("e", [4, 8])
+def test_split_seeder_card_equals_cpu(card, small_world, e):
+    """Split (drop-off) mode, every fourth read spliced at a junction: the
+    CUDA download equals the CPU plain path's, and the drop-off kernel
+    launched twice (primary and 5'-gap retry)."""
+    index, ref_codes, ref_seqs = small_world
+    B, L = 4096, 100
+    rng = np.random.default_rng(e)
+    reads = _reads(ref_codes, rng, B, L)
+    for i in range(0, B, 4):
+        st = int(rng.integers(0, len(ref_codes[0]) - 40))
+        reads[i, L - 40:] = ref_codes[0][st:st + 40]
+    rw = ds._pack_reads(reads)
+    outs = []
+    for dev in (card, "cpu"):
+        seeder = ds.DeviceSeeder(index, ref_seqs, e, MIN_SEEDS, F,
+                                 device=dev, split=True)
+        before = my.myers_dropoff.launches
+        handle = seeder.submit_packed(rw, B, L)
+        res = seeder.resolve(handle)
+        (dl, full, _, _), _, _ = handle
+        outs.append((dl.cpu().numpy().tobytes(), full.cpu().numpy().tobytes(),
+                     res, my.myers_dropoff.launches - before))
+    assert outs[0][3] == 2 and outs[1][3] == 0
+    assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
+    a, b = outs[0][2], outs[1][2]
+    for x, y in zip(a[:2] + a[2], b[:2] + b[2]):
+        np.testing.assert_array_equal(x, y)
+    rml0 = (a[2][1] >> np.uint64(17)) & np.uint64(0xFF)
+    assert (rml0 < L).any()

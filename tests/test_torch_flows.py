@@ -2,7 +2,11 @@
 chromap_tpu_torch.cli --device --torch-device cpu` maps the 5000-pair
 simulated set through the plain versions of the kernels, and its BED must
 byte-match the reference chromap golden (which the JAX package's device
-path matches too). Also pinned: thread-count invariance, that a device
+path matches too). The Hi-C flow (`--preset hic`: split alignment, pairs
+output, low-memory mode) goes through the split seeder the same way and
+must byte-match its goldens, plain, with `--chr-order` /
+`--pairs-natural-chr-order`, and barcoded. Also pinned: thread-count
+invariance, that a device
 failure raises instead of mapping on the host, that CUDA without a card
 raises, and that the package neither imports nor needs JAX or the JAX
 package."""
@@ -18,7 +22,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).parent))
 
-from simulate import write_simulated_dataset  # noqa: E402
+from simulate import (write_simulated_barcodes,  # noqa: E402
+                      write_simulated_dataset,
+                      write_simulated_multichrom_dataset)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "chromap_tpu_torch"
@@ -42,11 +48,22 @@ def _two_torch_threads():
 def sim_data(tmp_path_factory):
     d = tmp_path_factory.mktemp("simtorch")
     write_simulated_dataset(str(d))
+    write_simulated_barcodes(str(d))
     for pkg, name in (("chromap_tpu_torch", "index"),
                       ("chromap_tpu", "index_jax")):
         subprocess.run([sys.executable, "-m", f"{pkg}.cli", "-i",
                         "-r", f"{d}/ref.fa", "-o", f"{d}/{name}"],
                        check=True, capture_output=True, cwd=ROOT, env=ENV)
+    return d
+
+
+@pytest.fixture(scope="module")
+def mc_data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("simtorchmc")
+    write_simulated_multichrom_dataset(str(d))
+    subprocess.run([sys.executable, "-m", "chromap_tpu_torch.cli", "-i",
+                    "-r", f"{d}/ref.fa", "-o", f"{d}/index"],
+                   check=True, capture_output=True, cwd=ROOT, env=ENV)
     return d
 
 
@@ -69,6 +86,31 @@ def test_cli_device_cpu_matches_golden(sim_data, golden_dir, tmp_path):
     assert res.returncode == 0, res.stderr
     assert "Using CPU (plain torch) device seeding" in res.stderr
     assert out.read_bytes() == (golden_dir / "sim_default.bed").read_bytes()
+
+
+HIC_CASES = [
+    ("sim_hic.pairs", "sim_data", ["--preset", "hic"]),
+    ("sim_chrorder.pairs", "mc_data",
+     ["--preset", "hic", "--chr-order", "{d}/chr_order.txt",
+      "--pairs-natural-chr-order", "{d}/chr_order2.txt"]),
+    ("sim_bc.pairs", "sim_data",
+     ["--preset", "hic", "-b", "{d}/bc.fq",
+      "--barcode-whitelist", "{d}/whitelist.txt"]),
+]
+
+
+@pytest.mark.parametrize("golden,data,extra", HIC_CASES,
+                         ids=[c[0] for c in HIC_CASES])
+def test_cli_hic_device_cpu_matches_golden(golden, data, extra, request,
+                                           golden_dir, tmp_path):
+    """Split alignment on the device path: drop-off Myers and the 5'-gap
+    retry per candidate, the split download, the pairs records flow."""
+    d = request.getfixturevalue(data)
+    out = tmp_path / golden
+    res = _map(d, out, [a.format(d=d) for a in extra] + DEVICE_ARGS)
+    assert res.returncode == 0, res.stderr
+    assert "Using CPU (plain torch) device seeding" in res.stderr
+    assert out.read_bytes() == (golden_dir / golden).read_bytes()
 
 
 def test_cli_device_threads_invariant(sim_data, tmp_path):

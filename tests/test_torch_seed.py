@@ -3,7 +3,8 @@ program on the same inputs: kernel C's plain version against
 `_cluster_scan_W`, the probe and the tiled scans, the index build, and the
 whole step -- the port's DeviceSeeder on the CPU must download the same
 bytes `(dl, full)` as the JAX DeviceSeeder, including with the u64 index
-tiers forced on the port's side and on the k > 22 searchsorted probe."""
+tiers forced on the port's side, on the k > 22 searchsorted probe, and in
+split (drop-off) mode on reads spliced at a ligation junction."""
 
 import sys
 from pathlib import Path
@@ -249,6 +250,60 @@ def test_seeder_wide_hash_probe_matches_jax():
     assert tdl.tobytes() == dl.tobytes()
     assert tfull.tobytes() == full.tobytes()
     assert dl[0] > 0
+
+
+def _spliced_reads(ref_codes, seed: int, B: int, L: int):
+    """Simulated reads, every fourth spliced at a ligation junction: its
+    last 40 bases come from a random place of the first sequence."""
+    rng = np.random.default_rng(seed)
+    reads = _simulate_reads(ref_codes, rng, B, L)
+    g = ref_codes[0]
+    for i in range(0, B, 4):
+        st = int(rng.integers(0, len(g) - 40))
+        reads[i, L - 40:] = g[st:st + 40]
+    return reads
+
+
+@pytest.mark.parametrize("e", [4, 8])
+def test_split_seeder_download_matches_jax(small_world, monkeypatch, e):
+    """Split (drop-off) mode: the download -- 4 u32 per candidate, the
+    second u64 packing the primary and 5'-gap retry results -- and the
+    `resolve` tuple (cand_meta, cand_split) equal the JAX split seeder's."""
+    index, ref_codes, ref_seqs = small_world
+    B, L = 96, 100
+    reads = _spliced_reads(ref_codes, 5, B, L)
+    rw = jds._pack_reads(reads)
+    js = jds.DeviceSeeder(index, ref_seqs, e, MIN_SEEDS, F, use_pallas=False,
+                          split=True)
+    jhandle = js.submit_packed(rw, B, L)
+    (dl, full, _), _, _ = jhandle
+    ts = tds.DeviceSeeder(index, ref_seqs, e, MIN_SEEDS, F, device="cpu",
+                          split=True)
+    handle = ts.submit_packed(rw, B, L)
+    (tdl, tfull, _, _), _, _ = handle
+    assert tdl.numpy().tobytes() == np.asarray(dl).tobytes()
+    assert tfull.numpy().tobytes() == np.asarray(full).tobytes()
+    total = int(dl[0])
+    assert total > 0 and dl[1] == 0
+    assert len(dl) == 2 + B + 4 * tds.DL_CANDS_PER_READ * B
+    got, want = ts.resolve(handle), js.resolve(jhandle)
+    assert got[3] is False and want[3] is False
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert isinstance(got[2], tuple) and len(got[2]) == 2
+    for a, b in zip(got[2], want[2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # the junction reads stop early: some primary read_mapping_length
+    # (bits 17..24 of the split word) falls short of L
+    rml0 = (got[2][1] >> np.uint64(17)) & np.uint64(0xFF)
+    assert (rml0 < L).any() and (rml0 == L).any()
+    # with no candidate in the single download, resolve reads them all
+    # from the `full` stream and returns the same
+    monkeypatch.setattr(tds, "DL_CANDS_PER_READ", 0)
+    res = ts.resolve(ts.submit_packed(rw, B, L))
+    for a, b in zip(res[:2] + res[2], want[:2] + want[2]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_seeder_refuses_cuda_without_card(small_world):
