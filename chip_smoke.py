@@ -12,7 +12,12 @@ Phases, in order (any failure exits non-zero before the last line):
            is an integer. Times both with CUDA events (median of >= 10
            launches after warm-up). The drop-off kernel runs at the Hi-C
            path's two shapes (L = 100, e = 4, and the 5'-gap retry's
-           L = 84), with planted junctions so that lanes stop early.
+           L = 84), with planted junctions so that lanes stop early, and
+           once more with texts equal to the patterns' diagonal, so that
+           no lane stops. For kernels A and D it also prints what bounds
+           them: ptxas' registers and shared memory, resident blocks per
+           SM, the achieved GB/s, and a cold time (a 128 MiB write
+           between launches evicts the 50 MB L2).
   path     the paired-end --device BED flow at realistic scale: simulates a
            ~141 Mb one-chromosome genome and 100,000 pairs, builds the
            index with the port's CLI (-i), and maps in-process four times
@@ -60,8 +65,9 @@ DATA = os.path.join(ROOT, "_smoke")
 
 # H100 SXM data sheet: 3.35 TB/s HBM3; 67 T/s is the float32 rate outside
 # the tensor cores, used for the 32-bit integer instructions these kernels
-# issue (the true integer issue rate is no higher, so the bound stays a
-# lower bound on time)
+# issue. The true integer issue rate is lower (64 INT32 lanes per SM and
+# clock against 128 FP32: ~16.7 T/s at 1.98 GHz), so the bound stays a
+# lower bound on time, and a kernel of integer work can sit well above it.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
@@ -81,10 +87,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_cuda(fn, reps: int = 10, warmup: int = 2, between=None) -> float:
     """Median milliseconds of one call of fn, by CUDA events. A spin
     kernel holds the stream while the host enqueues every timed call, so
-    the events see device time and not the host's launch overhead."""
+    the events see device time and not the host's launch overhead.
+    `between()`, if given, runs before each call, outside the events."""
     import torch
     for _ in range(warmup):
         fn()
@@ -93,6 +100,8 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(2_000_000_000)           # about a second of cycles
     for a, b in events:
+        if between is not None:
+            between()
         a.record()
         fn()
         b.record()
@@ -282,17 +291,36 @@ def check_kernel(label: str, wrapper, kernel, plain, cost, note) -> dict:
         raise AssertionError(f"{label}: kernel differs from its plain "
                              "version")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=err)
+                max_abs_err=err, nbytes=cost[0])
+
+
+def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
+    """Log what bounds a redesigned kernel: achieved GB/s warm and cold
+    (`flush` is overwritten before each cold launch), and the resident
+    blocks per SM from its C entry's occupancy query."""
+    from chromap_tpu_torch.ops import _build
+    blocks, threads, smem, tile = _build.occupancy(name, L)
+    cold_ms = time_cuda(fn, between=flush.zero_)
+    t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+    gbs = [r["nbytes"] / (t * 1e-3) / 1e9 for t in (r["ms"], cold_ms)]
+    log(f"{label}: {gbs[0]:.0f} GB/s warm, {gbs[1]:.0f} GB/s cold "
+        f"(cold_ms={cold_ms:.4f}, a {flush.numel() >> 20} MiB write "
+        f"before each launch); resident blocks per SM {blocks} of "
+        f"{threads} threads, {smem} B shared memory a block, tile {tile}"
+        + ("; faster than its bytes bound warm: the 50 MB L2 served it"
+           if r["ms"] < t_bytes else ""))
 
 
 def phase_kernels(results: dict) -> None:
     import numpy as np
+    import torch
     from chromap_tpu_torch.ops import dense_minimizer as dm
     from chromap_tpu_torch.ops import device_seed as ds
     from chromap_tpu_torch.ops import myers as my
 
     rng = np.random.default_rng(7)
     L, B = 100, 32768
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
     # kernel A at the main path's (k, w), then at the index preset for
     # fragments over 80 bases
@@ -306,7 +334,10 @@ def phase_kernels(results: dict) -> None:
             dense_cost(c, n, k, w),
             lambda o: f"minimizers={int(o[3].sum())} "
                       f"bad_reads={int(o[4].sum())}")
-        results.setdefault("dense_minimizer", r)
+        if "dense_minimizer" not in results:
+            kernel_detail(f"kernel A k={k} w={w}", "dense_minimizer", L, r,
+                          lambda: dm.dense_minimizer(c, n, k, w, L), flush)
+            results["dense_minimizer"] = r
 
     N, e = 65536, 8
     p, t = kernel_inputs_myers(rng, L, N, e)
@@ -338,6 +369,18 @@ def phase_kernels(results: dict) -> None:
             dropoff_cost(rml, ln, e),
             lambda o: f"stopped_early={int((o[2] < ln).sum())} "
                       f"negated={int((o[1] < 0).sum())}")
+        kernel_detail(f"kernel D L={ln}", "myers_dropoff", ln, results[key],
+                      lambda: my.myers_dropoff(pp, tt, e, ln), flush)
+    # the primary pass's planes with texts = the patterns' diagonal: no
+    # lane stops, so every warp runs the whole read (early-stop divergence
+    # is gone; what remains is the per-row latency and issue)
+    tf = p[e:e + L].contiguous()
+    check_kernel(
+        f"kernel D myers_dropoff full read N={N} L={L} e={e}",
+        my.myers_dropoff, lambda: my.myers_dropoff(p, tf, e, L),
+        lambda: my.myers_dropoff_plain(p, tf, e, L),
+        dropoff_cost(torch.full((N,), L, dtype=torch.int32), L, e),
+        lambda o: f"stopped_early={int((o[2] < L).sum())}")
 
 
 # ---------------------------------------------------------------------
@@ -756,7 +799,9 @@ def main() -> int:
     ap.add_argument("--genome-core", type=int, default=96_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
-                    help="also print ptxas' register/spill report")
+                    help="print ptxas' whole report for all four kernels "
+                    "(by default its register and shared-memory lines for "
+                    "kernels A and D)")
     ap.add_argument("--make-data", action="store_true",
                     help=argparse.SUPPRESS)  # the data child process
     args = ap.parse_args()
@@ -800,11 +845,13 @@ def main() -> int:
              "--genome-core", str(args.genome_core),
              "--pairs", str(args.pairs)], cwd=ROOT, start_new_session=True)
     try:
-        if args.ptxas:
-            _build.build(verbose=True)
         build_s = _build.build()
         log(f"kernel build: {build_s:.1f}s for {', '.join(_build.KERNELS)} "
             f"({' '.join(_build.NVCC_FLAGS)})")
+        for name in (_build.KERNELS if args.ptxas
+                     else ("dense_minimizer", "myers_dropoff")):
+            log(f"ptxas {name}:\n"
+                + _build.ptxas_report(name, summary=not args.ptxas))
         if "kernels" in phases:
             phase_kernels(results)
     except Exception:

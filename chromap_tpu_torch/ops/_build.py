@@ -4,13 +4,16 @@ Each `csrc/<name>.cu` is compiled on first use by `nvcc` into its own
 shared library with a plain C interface, and loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<name>-<digest>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<digest>.so
+         csrc/<name>.cu
 
 The library name carries a digest of the source and the flags, so an
-edited source is never served by a stale build. `build()` starts one
-`nvcc` per missing library, all at once, and waits for them. Nothing but
-this package's sources is compiled, and the build directory is listed in
-`.gitignore`. Nothing here runs at import time.
+edited source is never served by a stale build. ptxas' report (registers,
+shared memory and spills of each kernel) is kept beside the library as
+`<library>.ptxas`. `build()` starts one `nvcc` per missing library, all
+at once, and waits for them. Nothing but this package's sources is
+compiled, and the build directory is listed in `.gitignore`. Nothing
+here runs at import time.
 
 Every C entry point takes device pointers and a `cudaStream_t` as
 `void*`, launches on that stream without synchronising, and returns
@@ -33,7 +36,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("dense_minimizer", "myers", "myers_dropoff", "cluster_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,30 +51,25 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
-def _flags(verbose: bool):
-    return NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-
-
-def so_path(name: str, verbose: bool = False) -> str:
+def so_path(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read())
-    digest.update(" ".join(_flags(verbose)).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> float:
+def build(names: Iterable[str] = KERNELS) -> float:
     """Compile every named kernel whose library is missing, one `nvcc`
-    per source, all started together. Returns the wall seconds spent;
-    with verbose=True prints ptxas' register and spill report."""
+    per source, all started together. Returns the wall seconds spent."""
     t0 = time.time()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for name in names:
-        out = so_path(name, verbose)
+        out = so_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc()] + _flags(verbose) + [
+        cmd = [_nvcc()] + NVCC_FLAGS + [
             "-o", tmp, os.path.join(CSRC, name + ".cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -82,12 +80,44 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        with open(out + ".ptxas", "w") as f:
+            f.write(log)
         os.replace(tmp, out)
-        if verbose and log.strip():
-            print(f"[nvcc {name}]\n{log.strip()}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.time() - t0
+
+
+def ptxas_report(name: str, summary: bool = True) -> str:
+    """ptxas' report from the build of kernel `name`; with summary=True
+    only each kernel's name and its "Used N registers, ... smem" line."""
+    with open(so_path(name) + ".ptxas") as f:
+        log = f.read()
+    if not summary:
+        return log.strip()
+    lines = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            lines.append(line.split("'")[1] if "'" in line else line)
+        elif "Used" in line and "registers" in line:
+            lines.append("  " + line.split(":", 1)[-1].strip())
+    return "\n".join(lines)
+
+
+def occupancy(name: str, L: int):
+    """(resident blocks per SM, threads per block, shared memory bytes per
+    block, tile) of kernel `name` launched at read length L, from its C
+    entry `<name>_occupancy` (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    on the current device)."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    rc = fn(int(L), ctypes.addressof(out))
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{name}_occupancy: CUDA error {rc} ({msg})")
+    return tuple(out)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -49,6 +49,7 @@ def hash64(key: torch.Tensor, mask: int) -> torch.Tensor:
 
 def _down(a: torch.Tensor, d: int, fill) -> torch.Tensor:
     """Plane whose row p holds a[p - d] (`fill` in the first d rows)."""
+    d = min(d, a.shape[0])
     if d == 0:
         return a
     pad = torch.full((d,) + a.shape[1:], fill, dtype=a.dtype,

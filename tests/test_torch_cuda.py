@@ -60,6 +60,91 @@ def test_dense_kernel_equals_plain(card, k, w):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("k,w", [(17, 7), (23, 11), (28, 3), (12, 4)])
+@pytest.mark.parametrize("L", [30, 100, 230])
+@pytest.mark.parametrize("B", [1, 31, 33, 3000])
+def test_dense_kernel_tiles(card, B, L, k, w):
+    """Kernel A's shared-memory tiles: a partial tile of reads (B % 32),
+    rows that are not 16-byte aligned (B % 4), the shortest and longest
+    reads the seeding step sends (L = 230 needs more than 48 KB of shared
+    memory), an all-N read, a read that is N from base k on, and a
+    homopolymer (hash ties in every window)."""
+    rng = np.random.default_rng(B * 1000 + L + k)
+    codes = rng.integers(0, 4, (B, L)).astype(np.int32)
+    codes[rng.random((B, L)) < 0.01] = 4
+    lengths = np.full((B,), L, np.int32)
+    for r in range(B):
+        kind = r % 5
+        if kind == 1:
+            codes[r] = 4
+        elif kind == 2:
+            codes[r, k:] = 4
+            lengths[r] = k
+        elif kind == 3:
+            codes[r] = codes[r, 0] % 4
+        elif kind == 4:
+            ln = int(rng.integers(1, L + 1))
+            codes[r, ln:] = 4
+            lengths[r] = ln
+    ct = torch.from_numpy(codes.T.copy()).to(card)
+    lt = torch.from_numpy(lengths.reshape(1, B)).to(card)
+    before = dm.dense_minimizer.launches
+    got = dm.dense_minimizer(ct, lt, k, w, L)
+    assert dm.dense_minimizer.launches == before + 1
+    want = dm.dense_minimizer_plain(ct, lt, k, w, L)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("e", [0, 4, 15])
+@pytest.mark.parametrize("L", [61, 100, 230])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+def test_dropoff_kernel_ring(card, n, L, e):
+    """Kernel D's row ring: N around the 128-lane block, L + 2e rows not a
+    multiple of the ring's depth, the primary pass and the retry's L - g;
+    launches in which every lane stops as early as it can (at step 2e:
+    step 0 for e = 0), in which no lane stops (texts = the patterns'
+    diagonal), and a mix with junctions."""
+    rng = np.random.default_rng(n + 10 * L + e)
+    pats = rng.integers(0, 4, (L + 2 * e, n)).astype(np.int32)
+    pats[rng.random(pats.shape) < 0.003] = 4
+    diag = pats[e:e + L].copy()
+    mixed = diag.copy()
+    flip = rng.random((L, n)) < 0.03
+    mixed[flip] = rng.integers(0, 5, int(flip.sum()))
+    junction = rng.integers(0, L, n)
+    spliced = (np.arange(L)[:, None] >= junction[None, :]) \
+        & (np.arange(n) % 3 == 0)
+    mixed[spliced] = rng.integers(0, 4, int(spliced.sum()))
+    g = 20 - e
+    for kind, p_np, t_np in (("stop", np.zeros_like(pats),
+                              np.ones_like(diag)),
+                             ("full", pats, diag), ("mixed", pats, mixed)):
+        pt = torch.from_numpy(p_np).to(card)
+        tt = torch.from_numpy(t_np).to(card)
+        for p, t, ln in ((pt, tt, L), (pt[g:], tt[g:], L - g)):
+            got = my.myers_dropoff(p, t, e, ln)
+            want = my.myers_dropoff_plain(p, t, e, ln)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (kind, ln)
+            if kind == "stop":
+                assert bool((got[2] == 2 * e).all())
+            if kind == "full":
+                assert bool((got[2] == ln).all())
+
+
+def test_kernel_occupancy_queries(card):
+    """The occupancy entries that chip_smoke.py reports: kernel A's tile
+    shrinks to fit shared memory and still fits at least one block."""
+    from chromap_tpu_torch.ops import _build
+    for L in (30, 100, 230, 5000):
+        blocks, threads, smem, tile = _build.occupancy("dense_minimizer", L)
+        assert blocks >= 1 and threads == 256 and 1 <= tile <= 32
+    assert _build.occupancy("dense_minimizer", 100)[3] == 32
+    blocks, threads, smem, stages = _build.occupancy("myers_dropoff", 100)
+    assert blocks >= 1 and smem == 4 * stages * 2 * threads
+
+
 @pytest.mark.parametrize("e", [0, 1, 4, 8, 15])
 def test_myers_kernel_equals_plain(card, e):
     rng = np.random.default_rng(e)

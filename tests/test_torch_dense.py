@@ -96,6 +96,30 @@ def test_dense_plain_other_k(k, w):
     rng = np.random.default_rng(k * 31 + w)
     B, L = 256, 64
     codes, lengths = _codes(rng, B, L, k, n_rate=0.02)
+    _assert_matches_jnp_stages(codes, lengths, k, w)
+
+
+@pytest.mark.parametrize("L,k,w", [(30, 17, 7), (30, 12, 4), (230, 17, 7),
+                                   (230, 23, 11)])
+def test_dense_plain_at_path_extremes(L, k, w):
+    """The shortest and longest reads the seeding step sends to the card
+    (30 <= L <= 230), at which kernel A sizes its shared-memory tile."""
+    rng = np.random.default_rng(L * 7 + k)
+    codes, lengths = _codes(rng, 128, L, k, n_rate=0.02)
+    _assert_matches_jnp_stages(codes, lengths, k, w)
+
+
+@pytest.mark.parametrize("L", [10, 20])
+def test_dense_plain_reads_shorter_than_k(L):
+    """Planes with fewer positions than k (the wrapper takes any L >= 1):
+    no k-mer fits at L = 10, one window's worth at L = 20."""
+    rng = np.random.default_rng(L)
+    codes = rng.integers(0, 4, (16, L)).astype(np.uint8)
+    codes[0] = 4
+    _assert_matches_jnp_stages(codes, np.full((16,), L, np.int32), 17, 7)
+
+
+def _assert_matches_jnp_stages(codes, lengths, k, w):
     hlo, hhi, emit, mm, bad = _port(codes, lengths, k, w)
     h, strand, symmetric, run = jds._kmer_stage(jnp.asarray(codes), k)
     j_emit, tie = jds._emission_stage(h, run, jnp.asarray(lengths), k, w)
@@ -105,7 +129,10 @@ def test_dense_plain_other_k(k, w):
              | ((hhi.T.view(np.uint32) & np.uint32(0x7FFFFFFF))
                 .astype(np.uint64) << np.uint64(32)))
     np.testing.assert_array_equal(got_h[finite], h[finite])
+    np.testing.assert_array_equal((hhi.T.view(np.uint32) >> 31)[finite],
+                                  np.asarray(strand)[finite])
     np.testing.assert_array_equal(emit.T != 0, np.asarray(j_emit))
+    np.testing.assert_array_equal(mm[0], np.asarray(j_emit).sum(axis=1))
     np.testing.assert_array_equal(
         bad[0] != 0, np.asarray((tie | symmetric).any(axis=1)))
 

@@ -103,6 +103,24 @@ def test_dropoff_plain_matches_jax(e, L):
             np.testing.assert_array_equal(a.numpy(), b)
 
 
+@pytest.mark.parametrize("L", [30, 230])
+@pytest.mark.parametrize("e", [0, 4, 15])
+def test_dropoff_plain_matches_jax_at_path_extremes(e, L):
+    """The shortest and longest reads the seeding step sends to the card
+    (30 <= L <= 230), and their 5'-gap retry slices. At L = 30, e = 15 no
+    lane can pass 2e errors."""
+    rng = np.random.default_rng(77 * e + L)
+    n = 192
+    pats, texts = _batch(rng, n, L, e)
+    pt, tt = _T(pats), _T(texts)
+    g = 20 - e
+    for p, t, ln in ((pt, tt, L), (pt[g:], tt[g:], L - g)):
+        got = my.myers_dropoff(p, t, e, ln)
+        for a, b in zip(got, _jax(p, t, e, ln)):
+            np.testing.assert_array_equal(a.numpy(), b)
+    assert (got[2].numpy() == L - g).any()
+
+
 @pytest.mark.parametrize("e,L", [(0, 40), (4, 100), (8, 61), (15, 80)])
 def test_dropoff_plain_matches_scalar(e, L):
     """Each candidate against the scalar kernels of mapping/verify.py: the
