@@ -14,8 +14,8 @@ Phases, in order (any failure exits non-zero before the last line):
            path's two shapes (L = 100, e = 4, and the 5'-gap retry's
            L = 84), with planted junctions so that lanes stop early, and
            once more with texts equal to the patterns' diagonal, so that
-           no lane stops. For kernels A and D it also prints what bounds
-           them: ptxas' registers and shared memory, resident blocks per
+           no lane stops. For every kernel it also prints what bounds
+           it: ptxas' registers and shared memory, resident blocks per
            SM, the achieved GB/s, and a cold time (a 128 MiB write
            between launches evicts the 50 MB L2).
   path     the paired-end --device BED flow at realistic scale: simulates a
@@ -75,7 +75,7 @@ REPLACES = {
     "dense_minimizer": "chromap_tpu/ops/pallas_dense.py:157",
     "myers": "chromap_tpu/ops/pallas_myers.py:39",
     "cluster_scan": "chromap_tpu/ops/device_seed.py:227",
-    "myers_dropoff": "chromap_tpu/ops/pallas_myers.py:221",
+    "myers_dropoff": "chromap_tpu/ops/pallas_myers.py:222",
 }
 KERNEL_SOURCES = (("dense_minimizer", "dense_minimizer.cu"),
                   ("myers", "myers.cu"),
@@ -295,18 +295,19 @@ def check_kernel(label: str, wrapper, kernel, plain, cost, note) -> dict:
 
 
 def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
-    """Log what bounds a redesigned kernel: achieved GB/s warm and cold
-    (`flush` is overwritten before each cold launch), and the resident
-    blocks per SM from its C entry's occupancy query."""
+    """Log what bounds a kernel: achieved GB/s warm and cold (`flush` is
+    overwritten before each cold launch), and the resident blocks per SM
+    from its C entry's occupancy query."""
     from chromap_tpu_torch.ops import _build
     blocks, threads, smem, tile = _build.occupancy(name, L)
+    unit = "reads a tile" if name == "dense_minimizer" else "ring stages"
     cold_ms = time_cuda(fn, between=flush.zero_)
     t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
     gbs = [r["nbytes"] / (t * 1e-3) / 1e9 for t in (r["ms"], cold_ms)]
     log(f"{label}: {gbs[0]:.0f} GB/s warm, {gbs[1]:.0f} GB/s cold "
         f"(cold_ms={cold_ms:.4f}, a {flush.numel() >> 20} MiB write "
         f"before each launch); resident blocks per SM {blocks} of "
-        f"{threads} threads, {smem} B shared memory a block, tile {tile}"
+        f"{threads} threads, {smem} B shared memory a block, {tile} {unit}"
         + ("; faster than its bytes bound warm: the 50 MB L2 served it"
            if r["ms"] < t_bytes else ""))
 
@@ -345,6 +346,8 @@ def phase_kernels(results: dict) -> None:
         f"kernel B myers N={N} L={L} e={e}", my.myers,
         lambda: my.myers(p, t, e, L), lambda: my.myers_plain(p, t, e, L),
         myers_cost(L, N, e), lambda o: f"within_e={int((o[0] <= e).sum())}")
+    kernel_detail(f"kernel B L={L}", "myers", L, results["myers"],
+                  lambda: my.myers(p, t, e, L), flush)
 
     H = ds.HCAP
     words, mm, req = kernel_inputs_cluster(rng, H, B)
@@ -353,6 +356,9 @@ def phase_kernels(results: dict) -> None:
         lambda: ds.cluster_scan(words, mm, req, e),
         lambda: ds.cluster_scan_plain(words, mm, req, e),
         cluster_cost(H, B), lambda o: f"emitted={int(o[0].sum())}")
+    kernel_detail(f"kernel C H+1={H + 1}", "cluster_scan", L,
+                  results["cluster_scan"],
+                  lambda: ds.cluster_scan(words, mm, req, e), flush)
 
     # kernel D at the Hi-C path's shapes: the primary pass over the whole
     # read, then the 5'-gap retry over rows g.. of the same planes
@@ -800,8 +806,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
                     help="print ptxas' whole report for all four kernels "
-                    "(by default its register and shared-memory lines for "
-                    "kernels A and D)")
+                    "(by default only its register and shared-memory "
+                    "lines)")
     ap.add_argument("--make-data", action="store_true",
                     help=argparse.SUPPRESS)  # the data child process
     args = ap.parse_args()
@@ -848,8 +854,7 @@ def main() -> int:
         build_s = _build.build()
         log(f"kernel build: {build_s:.1f}s for {', '.join(_build.KERNELS)} "
             f"({' '.join(_build.NVCC_FLAGS)})")
-        for name in (_build.KERNELS if args.ptxas
-                     else ("dense_minimizer", "myers_dropoff")):
+        for name in _build.KERNELS:
             log(f"ptxas {name}:\n"
                 + _build.ptxas_report(name, summary=not args.ptxas))
         if "kernels" in phases:

@@ -106,9 +106,10 @@ def ptxas_report(name: str, summary: bool = True) -> str:
 
 def occupancy(name: str, L: int):
     """(resident blocks per SM, threads per block, shared memory bytes per
-    block, tile) of kernel `name` launched at read length L, from its C
-    entry `<name>_occupancy` (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    on the current device)."""
+    block, reads a tile or ring stages) of kernel `name` launched at read
+    length L, from its C entry `<name>_occupancy`
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+    device)."""
     lib = load(name)
     fn = getattr(lib, f"{name}_occupancy")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]

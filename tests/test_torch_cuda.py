@@ -33,6 +33,15 @@ def card():
     return torch.device("cuda")
 
 
+def _shifted(t):
+    """A contiguous copy of `t` whose data starts one element past a
+    16-byte boundary (a view at storage offset 1)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _codes(rng, B, L, k):
     codes = rng.integers(0, 4, (B, L)).astype(np.int32)
     codes[rng.random((B, L)) < 0.01] = 4
@@ -143,21 +152,37 @@ def test_kernel_occupancy_queries(card):
     assert _build.occupancy("dense_minimizer", 100)[3] == 32
     blocks, threads, smem, stages = _build.occupancy("myers_dropoff", 100)
     assert blocks >= 1 and smem == 4 * stages * 2 * threads
+    # B's and C's rings: stages of whole rows of the block's columns (both
+    # planes for B; C also holds two 16-row flag buffers)
+    blocks, threads, smem, stages = _build.occupancy("myers", 100)
+    assert blocks >= 1 and stages >= 2 and smem % (4 * stages * 2 * threads) == 0
+    blocks, threads, smem, stages = _build.occupancy("cluster_scan", 100)
+    ring = smem - 2 * 16 * threads
+    assert blocks >= 1 and stages >= 2 and ring % (8 * stages * threads) == 0
 
 
 @pytest.mark.parametrize("e", [0, 1, 4, 8, 15])
-def test_myers_kernel_equals_plain(card, e):
-    rng = np.random.default_rng(e)
-    n, L = 5000, 150
+@pytest.mark.parametrize("L", [30, 100, 150, 230])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097, 5000])
+def test_myers_kernel_equals_plain(card, n, L, e):
+    """Kernel B's block ring: N around the 128-lane block and N % 4 != 0
+    (rows that are not 16-byte aligned), L + 2e rows not a multiple of a
+    stage, N bases and codes outside 0..4 on both sides."""
+    rng = np.random.default_rng(n + 10 * L + e)
     pats = rng.integers(0, 5, (L + 2 * e, n)).astype(np.int32)
+    pats[rng.random(pats.shape) < 0.005] = -1
     texts = pats[e:e + L].copy()
     flip = rng.random((L, n)) < 0.03
-    texts[flip] = rng.integers(0, 5, int(flip.sum()))
+    texts[flip] = rng.integers(0, 8, int(flip.sum()))
     texts[:, ::7] = rng.integers(0, 4, (L, len(range(0, n, 7))))
     pt, tt = torch.from_numpy(pats).to(card), torch.from_numpy(texts).to(card)
+    before = my.myers.launches
     got = my.myers(pt, tt, e, L)
+    assert my.myers.launches == before + 1
     want = my.myers_plain(pt, tt, e, L)
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(my.myers(_shifted(pt), _shifted(tt), e, L), want):
         assert torch.equal(a, b)
 
 
@@ -192,13 +217,21 @@ def test_myers_dropoff_kernel_equals_plain(card, e, L, n):
         assert bool((got[2] < ln).any()) and bool((got[2] == ln).any())
 
 
-@pytest.mark.parametrize("e", [0, 8])
-def test_cluster_kernel_equals_plain(card, e):
-    rng = np.random.default_rng(20 + e)
-    H, B = ds.HCAP, 3000
+@pytest.mark.parametrize("e", [0, 8, 15])
+@pytest.mark.parametrize("H1", [2, 17, ds.HCAP + 1])
+@pytest.mark.parametrize("B", [1, 127, 129, 3001])
+def test_cluster_kernel_equals_plain(card, B, H1, e):
+    """Kernel C's block ring: B around the 128-read block, odd B (rows
+    that are not 16-byte aligned), H + 1 not a multiple of a stage or of
+    the 16-row flag flush; columns full to H, all-ones columns, starts
+    near 2^32 (the u32 wrap of prev + e)."""
+    rng = np.random.default_rng(20 + e + 7 * H1 + B)
+    H = H1 - 1
     words = np.full((H + 1, B), UMAX, np.uint64)
     for b in range(B):
-        n = int(rng.integers(0, H + 1) if b % 9 == 0 else rng.integers(0, 40))
+        n = (H if b % 5 == 1 else 0 if b % 5 == 2
+             else int(rng.integers(0, H + 1)) if b % 9 == 0
+             else int(rng.integers(0, min(40, H) + 1)))
         if n:
             start = (np.uint64(rng.choice([0, (1 << 32) - 50]))
                      + np.cumsum(rng.integers(0, 4, n)).astype(np.uint64)) \
@@ -211,9 +244,13 @@ def test_cluster_kernel_equals_plain(card, e):
     mm = torch.from_numpy(rng.integers(1, 40, B).astype(np.int32)).to(card)
     req = torch.clamp(mm - 1, 1, 2).to(torch.int32)
     wt = from_numpy_u64(words).to(card)
+    before = ds.cluster_scan.launches
     got = ds.cluster_scan(wt, mm, req, e)
+    assert ds.cluster_scan.launches == before + 1
     want = ds.cluster_scan_plain(wt, mm, req, e)
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(ds.cluster_scan(_shifted(wt), mm, req, e), want):
         assert torch.equal(a, b)
 
 

@@ -82,8 +82,8 @@ def _downloads(index, ref_seqs, reads, monkeypatch=None, tiers=None):
 def _cluster_inputs(seed: int, B: int, H: int = tds.HCAP):
     rng = np.random.default_rng(seed)
     words = np.full((H + 1, B), UMAX, np.uint64)
-    counts = rng.integers(0, 40, B)
-    counts[: B // 8] = rng.integers(40, H + 1, B // 8)
+    counts = np.minimum(rng.integers(0, 40, B), H)    # 0: all-ones column
+    counts[: B // 8] = rng.integers(min(40, H), H + 1, B // 8)  # full to H
     for b in range(B):
         n = int(counts[b])
         if n == 0:
@@ -104,9 +104,12 @@ def _cluster_inputs(seed: int, B: int, H: int = tds.HCAP):
     return words, mm, req
 
 
-@pytest.mark.parametrize("seed,e", [(1, 8), (2, 4), (3, 0)])
+# seeds 4 and 5: the shortest tiles (H + 1 = 2 and 17 rows) at e = 15
+@pytest.mark.parametrize("seed,e", [(1, 8), (2, 4), (3, 0), (4, 15),
+                                    (5, 15)])
 def test_cluster_scan_plain_matches_jax(seed, e):
-    words, mm, req = _cluster_inputs(seed, 384)
+    H = {4: 1, 5: 16}.get(seed, tds.HCAP)
+    words, mm, req = _cluster_inputs(seed, 384, H)
     j_emit, j_cand = jds._cluster_scan_W(jnp.asarray(words), jnp.asarray(mm),
                                          jnp.asarray(req), e)
     t_emit, t_cand = tds.cluster_scan(from_numpy_u64(words),
