@@ -37,9 +37,32 @@ Phases, in order (any failure exits non-zero before the last line):
            three .pairs files must be byte-equal and non-empty, a chunk
            must be seeded on the device, and the minimizer, cluster and
            drop-off kernels must each launch.
+  batch    the batch engine (--engine batch) on the path's genome and
+           index with the first 20,000 pairs (batch_r1.fq, batch_r2.fq),
+           in turns: host, --device (kernel B's launches counted from 0),
+           --device again, the native engine. The device BEDs must equal
+           the host batch BED and kernel B must launch; whether the batch
+           BED equals the native one is printed. Prints each run's wall
+           and time split, the candidates sent to kernel B and to numpy,
+           kernel B at the largest launch's shape against its plain
+           version, the upload of its host rows; then the native engine's
+           map_pairs_device on 16,384 pairs on CUDA against its numpy
+           form (equal arrays and stats).
+  flows    the single-device flows that tests/golden/ pins, in-process
+           through the port's CLI with --device --torch-device cuda
+           --device-batch-size 512 on tests/simulate.py's sets: presets,
+           PAF, SAM, barcodes with summary, --chr-order, single-end,
+           --read-format, the batch engine's four goldens, --num-shards
+           then --merge-shards, and cache-active data against a host
+           --no-cache run. Each output must equal its golden; each seeder
+           flow must seed a chunk on the card, each batch flow launch
+           kernel B.
   chunk    one 16384-pair chunk of the path's data, and one of the Hi-C
            reads in split mode, seeded by the port on CUDA and by its
-           plain path on the CPU: the downloads must be byte-equal.
+           plain path on the CPU, with the merge-sort probe, the
+           bucketed one (CHROMAP_TPU_PROBE=bucket) and searchsorted
+           (=sortss): all six downloads must be byte-equal. Times and
+           profiles each probe's step, and times the probe alone.
 
 It prints the card (nvidia-smi name and power limit) first and again
 before the JSON line of per-kernel numbers, and as its last line
@@ -396,11 +419,14 @@ def phase_kernels(results: dict) -> None:
 def make_data(genome_core: int, pairs: int) -> None:
     marker = os.path.join(DATA, f"ready_{genome_core}_{pairs}")
     if not os.path.exists(marker):
-        for name in ("hic_r1.fq", "hic_r2.fq"):   # made from the old reads
+        for name in ("hic_r1.fq", "hic_r2.fq", "batch_r1.fq",
+                     "batch_r2.fq"):                # made from the old reads
             if os.path.exists(os.path.join(DATA, name)):
                 os.remove(os.path.join(DATA, name))
         make_path_data(genome_core, pairs, marker)
     make_hic_reads()
+    make_batch_reads()
+    make_flows_data()
 
 
 def make_path_data(genome_core: int, pairs: int, marker: str) -> None:
@@ -469,11 +495,69 @@ def make_hic_reads() -> None:
         f"{HIC_JUNCTION} in {time.time() - t0:.1f}s")
 
 
+BATCH_PAIRS = 20_000  # the batch engine maps in Python around numpy
+
+
+def make_batch_reads() -> None:
+    """batch_r1.fq / batch_r2.fq: the first BATCH_PAIRS pairs of the
+    path's reads (the batch engine's phase: the full index, fewer
+    reads)."""
+    for i in (1, 2):
+        out = os.path.join(DATA, f"batch_r{i}.fq")
+        if os.path.exists(out):
+            continue
+        with open(os.path.join(DATA, f"r{i}.fq"), "rb") as f:
+            lines = f.read().split(b"\n")[:4 * BATCH_PAIRS]
+        with open(out + ".tmp", "wb") as f:
+            f.write(b"\n".join(lines) + b"\n")
+        os.replace(out + ".tmp", out)
+
+
+FLOWS = os.path.join(DATA, "flows")        # tests/simulate.py's 5000 pairs
+FLOWS_MC = os.path.join(DATA, "flows_mc")  # and its multi-chromosome set
+DUP = os.path.join(DATA, "flows_dup")      # 200 pairs repeated 30 times
+
+
+def make_flows_data() -> None:
+    """The simulated sets that tests/golden/ pins (5000 pairs with
+    barcodes; the multi-chromosome set), each indexed by the port's CLI,
+    and a duplicate-heavy set that activates the candidate cache."""
+    marker = os.path.join(FLOWS, "ready")
+    if os.path.exists(marker):
+        return
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from simulate import (write_simulated_barcodes, write_simulated_dataset,
+                          write_simulated_multichrom_dataset)
+    write_simulated_dataset(FLOWS)
+    write_simulated_barcodes(FLOWS)
+    write_simulated_multichrom_dataset(FLOWS_MC)
+    for d in (FLOWS, FLOWS_MC):
+        subprocess.run(
+            [sys.executable, "-m", "chromap_tpu_torch.cli", "-i",
+             "-r", os.path.join(d, "ref.fa"), "-o", os.path.join(d, "index")],
+            cwd=ROOT, check=True, capture_output=True)
+    os.makedirs(DUP, exist_ok=True)
+    for i in (1, 2):
+        with open(os.path.join(FLOWS, f"r{i}.fq")) as f:
+            lines = f.read().splitlines()
+        recs = [lines[j:j + 4] for j in range(0, 800, 4)]
+        with open(os.path.join(DUP, f"r{i}.fq"), "w") as f:
+            for n in range(30 * len(recs)):
+                r = recs[n % len(recs)]
+                f.write(f"@dup{n}\n{r[1]}\n+\n{r[3]}\n")
+    for name in ("index", "ref.fa"):
+        if not os.path.exists(os.path.join(DUP, name)):
+            os.symlink(os.path.join(FLOWS, name), os.path.join(DUP, name))
+    with open(marker, "w") as f:
+        f.write("ok")
+
+
 def map_once(use_device: bool, out: str, preset: str | None = None,
-             reads: str = "r"):
+             reads: str = "r", engine: str = "auto"):
     """One in-process mapping run of `reads`1.fq / `reads`2.fq. Without a
     preset: BED with `-l 2000`; with one: the CLI's `--preset` defaults.
-    The candidate cache is off in every run (--device turns it off)."""
+    The candidate cache is off in every run (--device turns it off).
+    Returns (init s, map s, the run's log, the pipeline)."""
     import contextlib
     import io
 
@@ -487,7 +571,8 @@ def map_once(use_device: bool, out: str, preset: str | None = None,
         read_file2_paths=[os.path.join(DATA, f"{reads}2.fq")],
         mapping_output_file_path=out,
         use_device=use_device, torch_device="cuda", cache_off=True,
-        device_batch_size=16384, num_threads=os.cpu_count() or 1)
+        device_batch_size=16384, num_threads=os.cpu_count() or 1,
+        engine=engine)
     if preset is None:
         cfg.max_insert_size = 2000
     else:
@@ -499,7 +584,7 @@ def map_once(use_device: bool, out: str, preset: str | None = None,
         t1 = time.time()
         pipe.map_paired_end()
         t2 = time.time()
-    return t1 - t0, t2 - t1, err.getvalue()
+    return t1 - t0, t2 - t1, err.getvalue(), pipe
 
 
 def phase_path(results: dict, genome_core: int, pairs: int) -> None:
@@ -515,12 +600,12 @@ def phase_path(results: dict, genome_core: int, pairs: int) -> None:
     names = ("host", "device", "device_warm", "host_warm")
     paths = {n: os.path.join(DATA, f"{n}.bed") for n in names}
     walls, logs = {}, {}
-    _, walls["host"], _ = map_once(False, paths["host"])
+    _, walls["host"], _, _ = map_once(False, paths["host"])
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     for fn in (dm.dense_minimizer, my.myers, ds.cluster_scan):
         fn.launches = 0
-    _, walls["device"], logs["device"] = map_once(True, paths["device"])
+    _, walls["device"], logs["device"], _ = map_once(True, paths["device"])
     launches = {"dense_minimizer": dm.dense_minimizer.launches,
                 "myers": my.myers.launches,
                 "cluster_scan": ds.cluster_scan.launches}
@@ -528,8 +613,8 @@ def phase_path(results: dict, genome_core: int, pairs: int) -> None:
     held = torch.cuda.memory_allocated() - mem0
     seeder = next(iter(ds._seeder_cache.values()))
     st = dict(seeder.stats)
-    _, walls["device_warm"], _ = map_once(True, paths["device_warm"])
-    _, walls["host_warm"], _ = map_once(False, paths["host_warm"])
+    _, walls["device_warm"], _, _ = map_once(True, paths["device_warm"])
+    _, walls["host_warm"], _, _ = map_once(False, paths["host_warm"])
     reads = 2 * pairs
     log("path: map wall (reads/s): " + " | ".join(
         f"{n} {walls[n]:.3f}s ({reads / walls[n]:.0f})" for n in names)
@@ -601,8 +686,8 @@ def phase_hic(results: dict, pairs: int) -> None:
         spent[0] = 0.0
         MappingPipeline._map_pairs_hybrid = timed
         try:
-            _, walls[name], logs[name] = map_once(use_device, paths[name],
-                                                  "hic", "hic_r")
+            _, walls[name], logs[name], _ = map_once(
+                use_device, paths[name], "hic", "hic_r")
         finally:
             MappingPipeline._map_pairs_hybrid = hybrid
         mapper[name] = spent[0]
@@ -664,6 +749,314 @@ def phase_hic(results: dict, pairs: int) -> None:
 
 
 # ---------------------------------------------------------------------
+# phase: batch
+# ---------------------------------------------------------------------
+
+def host_median(fn, reps: int = 5) -> float:
+    """Median seconds of fn() by the host clock, each call ended by a
+    synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return statistics.median(times)
+
+
+def phase_batch(results: dict) -> None:
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.batch import verify as bv
+    from chromap_tpu_torch.ops import myers as my
+
+    # runs in turns, all -l 2000 with the cache off: host --engine batch,
+    # --engine batch --device (kernel B's launches counted from 0 just
+    # before, read just after), the same again, the native engine
+    names = ("host", "device", "device_warm", "native")
+    paths = {n: os.path.join(DATA, f"batch_{n}.bed") for n in names}
+    walls, logs, calls, split = {}, {}, {}, {}
+    largest = {}
+    wrapped = my.banded_distance_batch
+
+    def keep_largest(p, t, e, device="cuda"):
+        if len(p) > len(largest.get("p", ())):
+            largest.update(p=p, t=t, e=e)
+        return wrapped(p, t, e, device=device)
+
+    for n in names:
+        bv.myers_batch.calls = {"device": [], "numpy": []}
+        if n == "device":
+            my.myers.launches = 0
+            my.banded_distance_batch = keep_largest
+        try:
+            _, walls[n], logs[n], pipe = map_once(
+                n.startswith("device"), paths[n], reads="batch_r",
+                engine="auto" if n == "native" else "batch")
+        finally:
+            my.banded_distance_batch = wrapped
+        if n == "device":
+            launches = my.myers.launches
+        calls[n] = bv.myers_batch.calls
+        if pipe.batch_mapper is not None:
+            split[n] = dict(pipe.batch_mapper.seconds)
+    native_pipe = pipe
+    reads = 2 * BATCH_PAIRS
+    log("batch: map wall (reads/s): " + " | ".join(
+        f"{n} {walls[n]:.3f}s ({reads / walls[n]:.0f})" for n in names)
+        + "; host/device/device_warm are --engine batch, native is the "
+        "native host engine")
+    for n in names[:3]:
+        c, sp = calls[n], split[n]
+        rest = sp["total"] - sp["seed"] - sp["gather"] - sp["myers"]
+        log(f"batch {n}: candidates to kernel B {sum(c['device'])} in "
+            f"{len(c['device'])} launches (N {c['device']}), to numpy "
+            f"{sum(c['numpy'])} in {len(c['numpy'])} calls; time split "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in sp.items())
+            + f"; the rest of total {rest:.3f}s (classification, replay, "
+            "selection, traceback, emission)")
+    log(f"batch: launches of kernel B in the device run {launches}")
+    if "Using CUDA Myers verification (batch engine)" not in logs["device"]:
+        raise AssertionError("the batch device run did not verify on "
+                             "CUDA:\n" + logs["device"][-3000:])
+    outs = {}
+    for n in names:
+        with open(paths[n], "rb") as f:
+            outs[n] = f.read()
+    same = outs["device"] == outs["host"] == outs["device_warm"]
+    log(f"batch: BED bytes {len(outs['host'])}, lines "
+        f"{outs['host'].count(b'\n')}; device runs equal the host batch "
+        f"run: {same}")
+    if not same:
+        raise AssertionError("a batch-engine device BED differs from the "
+                             "host batch BED")
+    if not outs["host"]:
+        raise AssertionError("the batch engine wrote no mappings")
+    if launches <= 0:
+        raise AssertionError("kernel myers never launched in the batch "
+                             "engine's device run")
+    if outs["native"] == outs["host"]:
+        log("batch: the batch engine's BED equals the native engine's")
+    else:
+        a, b = outs["host"].splitlines(), outs["native"].splitlines()
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        log(f"batch: the batch engine's BED differs from the native "
+            f"engine's ({len(a)} against {len(b)} lines); first at line "
+            f"{i + 1}: batch {a[i] if i < len(a) else b'<end>'!r} native "
+            f"{b[i] if i < len(b) else b'<end>'!r}")
+    results["batch_launches"] = launches
+
+    # kernel B at the batch engine's largest launch, and what its host
+    # rows cost on the way to the card
+    p, t, e = largest["p"], largest["t"], largest["e"]
+    N, L = t.shape
+    up_u8 = host_median(lambda: (torch.from_numpy(p).cuda(),
+                                 torch.from_numpy(t).cuda()))
+    up_i32 = host_median(lambda: (
+        torch.from_numpy(np.ascontiguousarray(p.T, dtype=np.int32)).cuda(),
+        torch.from_numpy(np.ascontiguousarray(t.T, dtype=np.int32)).cuda()))
+    call = host_median(lambda: my.banded_distance_batch(p, t, e))
+    log(f"batch: kernel B's largest launch N={N} L={L} e={e}: uint8 rows "
+        f"to the card {1e3 * up_u8:.3f} ms ({(p.nbytes + t.nbytes) / 1e6:.1f}"
+        f" MB), int32 planes widened and transposed on the host "
+        f"{1e3 * up_i32:.3f} ms ({4 * (p.nbytes + t.nbytes) / 1e6:.1f} MB); "
+        f"the whole banded_distance_batch call {1e3 * call:.3f} ms (host "
+        "clock, median of 5)")
+    pt = torch.from_numpy(np.ascontiguousarray(p.T, dtype=np.int32)).cuda()
+    tt = torch.from_numpy(np.ascontiguousarray(t.T, dtype=np.int32)).cuda()
+    results["myers_batch_shape"] = check_kernel(
+        f"kernel B myers at the batch engine's shape N={N} L={L} e={e}",
+        my.myers, lambda: my.myers(pt, tt, e, L),
+        lambda: my.myers_plain(pt, tt, e, L), myers_cost(L, N, e),
+        lambda o: f"within_e={int((o[0] <= e).sum())}")
+    results["myers_batch_shape"].update(N=N, up_u8_ms=1e3 * up_u8,
+                                        call_ms=1e3 * call)
+
+    # the native engine's device entry: C++ collects the work, kernel B
+    # verifies it, C++ finishes; equal to the numpy form. Each call takes
+    # a fresh engine: an engine's random stream carries over between
+    # calls.
+    from chromap_tpu_torch.native import NativeEngine, _ptr
+    from chromap_tpu_torch.utils import encode_sequence
+    raw = []
+    for i in (1, 2):
+        with open(os.path.join(DATA, f"batch_r{i}.fq"), "rb") as f:
+            seqs = f.read().split(b"\n")[1::4][:16384]
+        chunk = len(seqs)
+        off = np.zeros(len(seqs) + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in seqs], out=off[1:])
+        raw += [b"".join(seqs), off]
+    ref_codes = np.concatenate([encode_sequence(x)
+                                for x in native_pipe.ref_seqs])
+    got = {}
+    for dev in ("cuda", None):
+        engine = NativeEngine(native_pipe.cfg, native_pipe.index,
+                              native_pipe.ref_seqs)
+        engine.set_cache_off()
+        n0 = my.myers.launches
+        t0 = time.time()
+        got[dev] = engine.map_pairs_device(
+            raw[0], _ptr(raw[1]), raw[2], _ptr(raw[3]), chunk, 0, 0,
+            ref_codes, device=dev)
+        torch.cuda.synchronize()
+        log(f"batch: map_pairs_device({chunk} pairs, device={dev!r}) "
+            f"{time.time() - t0:.3f}s, kernel B launches "
+            f"{my.myers.launches - n0}, records {len(got[dev][0]['rid'])}")
+    (a, sa), (b, sb) = got["cuda"], got[None]
+    same = (np.array_equal(sa, sb) and a.keys() == b.keys()
+            and all(np.array_equal(a[k], b[k]) for k in a))
+    log(f"batch: map_pairs_device on CUDA equals the numpy form: {same}")
+    if not same or not len(a["rid"]):
+        raise AssertionError("map_pairs_device on CUDA differs from its "
+                             "numpy form")
+
+
+# ---------------------------------------------------------------------
+# phase: flows
+# ---------------------------------------------------------------------
+
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+BARCODES = ["-b", "{d}/bc.fq", "--barcode-whitelist", "{d}/whitelist.txt"]
+# (golden, data, paired, arguments, engine): the single-device flows that
+# tests/test_torch_device_flows.py and tests/test_torch_batch.py pin on
+# the CPU
+FLOW_CASES = [
+    ("sim_atac.bed", FLOWS, True, ["--preset", "atac"], "seeder"),
+    ("sim_chip.bed", FLOWS, True,
+     ["-l", "2000", "--remove-pcr-duplicates", "--low-mem"], "seeder"),
+    ("sim_trim.paf", FLOWS, True, ["--trim-adapters", "--PAF"], "seeder"),
+    ("sim_pe.sam", FLOWS, True, ["--SAM"], "seeder"),
+    ("sim_barcode.bed", FLOWS, True,
+     BARCODES + ["--remove-pcr-duplicates", "--Tn5-shift", "-l", "2000",
+                 "--summary", "{out}.csv"], "seeder"),
+    ("sim_chrorder.bed", FLOWS_MC, True,
+     ["--chr-order", "{d}/chr_order.txt"], "seeder"),
+    ("sim_se_barcode.bed", FLOWS, False,
+     BARCODES + ["--remove-pcr-duplicates"], "seeder"),
+    ("sim_se_bc.sam", FLOWS, False, BARCODES + ["--SAM"], "seeder"),
+    ("sim_readformat.bed", FLOWS, True,
+     ["-b", "{d}/bc.fq", "--read-format", "r1:5:84,r2:0:79,bc:0:7"],
+     "seeder"),
+    ("sim_default.bed", FLOWS, True, ["--engine", "batch"], "batch"),
+    ("sim_chip.bed", FLOWS, True,
+     ["--engine", "batch", "-l", "2000", "--remove-pcr-duplicates"],
+     "batch"),
+    ("sim_n3.bed", FLOWS, True, ["--engine", "batch", "-n", "3", "-q", "0"],
+     "batch"),
+    ("sim_alloc.bed", FLOWS, True,
+     ["--engine", "batch", "--allocate-multi-mappings", "-q", "0"], "batch"),
+]
+FLOW_DEVICE = ["--device", "--torch-device", "cuda",
+               "--device-batch-size", "512"]
+
+
+def cli_run(argv) -> str:
+    """The port's CLI in this process; returns its log."""
+    import contextlib
+    import io
+
+    from chromap_tpu_torch import cli
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.parse_args_and_run(argv)
+    if rc != 0:
+        raise RuntimeError(f"CLI {argv} returned {rc}:\n"
+                           + err.getvalue()[-3000:])
+    return err.getvalue()
+
+
+def flow_run(d: str, out: str, extra, paired: bool = True):
+    """One device flow; returns (its log, chunks the device seeded that
+    came back within budget, kernel B launches, wall s)."""
+    from chromap_tpu_torch.ops import device_seed as ds
+    from chromap_tpu_torch.ops import myers as my
+
+    def seeded():
+        return {id(s): s.stats["chunks"] - s.stats["over_chunks"]
+                for s in ds._seeder_cache.values()}
+
+    argv = ["-x", f"{d}/index", "-r", f"{d}/ref.fa", "-1", f"{d}/r1.fq"]
+    if paired:
+        argv += ["-2", f"{d}/r2.fq"]
+    argv += ["-o", out] + [a.format(d=d, out=out) for a in extra]
+    before, n0, t0 = seeded(), my.myers.launches, time.time()
+    text = cli_run(argv)
+    wall = time.time() - t0
+    chunks = sum(v - before.get(k, 0) for k, v in seeded().items())
+    return text, chunks, my.myers.launches - n0, wall
+
+
+def phase_flows(results: dict) -> None:
+    bad = []
+    launches = 0
+    t_phase = time.time()
+
+    def check(name, ok, note, on_card=True, what="the golden"):
+        log(f"flows {name}: {note} equal to {what}: {ok}")
+        if not (ok and on_card):
+            bad.append(name)
+
+    def golden(name):
+        with open(os.path.join(GOLDEN, name), "rb") as f:
+            return f.read()
+
+    for name, d, paired, extra, kind in FLOW_CASES:
+        out = os.path.join(DATA, f"flow_{kind}_{name}")
+        text, chunks, n_b, wall = flow_run(d, out, extra + FLOW_DEVICE,
+                                           paired)
+        launches += n_b
+        with open(out, "rb") as f:
+            ok = f.read() == golden(name)
+        if name == "sim_barcode.bed":
+            with open(out + ".csv") as f:
+                ours = sorted(f.read().splitlines())
+            want = sorted(golden("sim_barcode_summary.csv").decode()
+                          .splitlines())
+            ok = ok and ours == want
+        if kind == "seeder":
+            on_card = chunks >= 1 and "Using CUDA device seeding" in text
+        else:
+            on_card = n_b >= 1 and "Using CUDA Myers verification" in text
+        check(f"{kind} {name}", ok, f"{wall:.2f}s, device chunks {chunks}, "
+              f"kernel B launches {n_b}, on the card {on_card};", on_card)
+
+    # --num-shards 2 on the device, then --merge-shards
+    out = os.path.join(DATA, "flow_sharded.bed")
+    chunks = 0
+    for i in range(2):
+        _, c, _, _ = flow_run(FLOWS, out, ["--num-shards", "2",
+                                           "--shard-index", str(i)]
+                              + FLOW_DEVICE)
+        chunks += c
+    cli_run(["-x", f"{FLOWS}/index", "-r", f"{FLOWS}/ref.fa", "-o", out,
+             "--merge-shards", f"{out}.shard0.temp0,{out}.shard1.temp0"])
+    with open(out, "rb") as f:
+        ok = f.read() == golden("sim_default.bed")
+    check("sharded sim_default.bed", ok, f"device chunks {chunks};",
+          chunks >= 1)
+
+    # cache-active data: --device (cache off) equals host --no-cache
+    outs = {}
+    for tag, extra in (("host", ["--no-cache"]), ("device", FLOW_DEVICE)):
+        out = os.path.join(DATA, f"flow_cache_{tag}.bed")
+        _, c, _, _ = flow_run(DUP, out, ["--read-batch-size", "1000"]
+                              + extra)
+        with open(out, "rb") as f:
+            outs[tag] = f.read()
+    check("cache-active (device vs host --no-cache)",
+          outs["device"] == outs["host"] and bool(outs["host"]),
+          f"device chunks {c};", c >= 1, "the host run")
+    log(f"flows: {len(FLOW_CASES) + 2} flows in "
+        f"{time.time() - t_phase:.1f}s, kernel B launches {launches}")
+    if bad:
+        raise AssertionError(f"flows that failed: {bad}")
+
+
+# ---------------------------------------------------------------------
 # phase: chunk
 # ---------------------------------------------------------------------
 
@@ -700,6 +1093,9 @@ def phase_chunk(results: dict) -> None:
 
 def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                split: bool) -> None:
+    """One 16384-pair chunk through the merge-sort step, the bucketed step
+    (CHROMAP_TPU_PROBE=bucket) and the searchsorted step (=sortss), each
+    on CUDA and on the CPU: all six downloads must be byte-equal."""
     import numpy as np
     import torch
     from chromap_tpu_torch.ops import device_seed as ds
@@ -707,47 +1103,64 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     codes = read_chunk(16384, reads)
     B, L = codes.shape
     rw = ds._pack_reads(codes)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
-                                 device=dev, split=split)
-        if dev == "cuda" and not split:
-            tier = {torch.int32: "u32", torch.int64: "u64"}
-            log(f"{label}: index tiers offcnt {tier[seeder.offcnt.dtype]}, "
-                f"occurrences {tier[seeder.occurrences.dtype]} "
-                f"({seeder.hash_keys.numel()} keys, "
-                f"{seeder.occurrences.numel()} occurrences)")
-        t0 = time.time()
-        h = seeder.submit_packed(rw, B, L)
-        r = seeder.resolve(h)
-        dt = time.time() - t0
-        (dl, full, _, _), _, _ = h
-        outs[dev] = (dl.cpu().numpy().tobytes(),
-                     full.cpu().numpy().tobytes(), r)
-        if dev == "cuda":
-            steps = []
-            for _ in range(5):
-                torch.cuda.synchronize()
+    outs, steps = {}, {}
+    for probe, mode in (("merge-sort", None), ("bucketed", "bucket"),
+                        ("searchsorted", "sortss")):
+        if mode is not None:
+            os.environ["CHROMAP_TPU_PROBE"] = mode
+        try:
+            for dev in ("cuda", "cpu"):
+                seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
+                                         device=dev, split=split)
                 t0 = time.time()
-                seeder.resolve(seeder.submit_packed(rw, B, L))
-                steps.append(time.time() - t0)
-            step_s = statistics.median(steps)
-            log(f"{label}: CUDA step (submit+resolve) {1e3 * step_s:.2f} ms "
-                f"median of 5 ({B} rows, L={L}, e={e}, split={split}); "
-                f"first call {1e3 * dt:.1f} ms")
-            profile_step(seeder, rw, B, L, label)
-            del seeder
-            torch.cuda.empty_cache()
-        else:
-            log(f"{label}: CPU plain step {1e3 * dt:.1f} ms")
-    same = outs["cuda"][:2] == outs["cpu"][:2]
-    total = int(np.frombuffer(outs["cuda"][0][:4], np.uint32)[0])
-    res = outs["cuda"][2]
-    log(f"{label}: (dl, full) CUDA vs CPU plain byte-equal={same} "
-        f"candidates={total} batch_over={res[3]}")
-    if not same:
-        raise AssertionError(f"{label}: CUDA chunk download differs from "
-                             "the CPU plain path")
+                h = seeder.submit_packed(rw, B, L)
+                r = seeder.resolve(h)
+                dt = time.time() - t0
+                (dl, full, _, _), _, _ = h
+                outs[probe, dev] = (dl.cpu().numpy().tobytes(),
+                                    full.cpu().numpy().tobytes(), r)
+                if dev == "cpu":
+                    log(f"{label} {probe}: CPU plain step {1e3 * dt:.1f} ms")
+                    continue
+                if probe == "merge-sort" and not split:
+                    tier = {torch.int32: "u32", torch.int64: "u64"}
+                    log(f"{label}: index tiers offcnt "
+                        f"{tier[seeder.offcnt.dtype]}, occurrences "
+                        f"{tier[seeder.occurrences.dtype]} "
+                        f"({seeder.hash_keys.numel()} keys, "
+                        f"{seeder.occurrences.numel()} occurrences)")
+                if probe == "bucketed":
+                    shift, depth = seeder.probe
+                    mib = (seeder.probe_table.numel() * 4
+                           + seeder.keys_lo.numel() * 4) / 2**20
+                    log(f"{label}: bucketed probe tbits={2 * seeder.k - shift}"
+                        f" shift={shift} depth={depth}; table "
+                        f"{seeder.probe_table.numel() * 4 / 2**20:.1f} MiB, "
+                        f"with the keys' u32 low words {mib:.1f} MiB")
+                step_s = host_median(
+                    lambda: seeder.resolve(seeder.submit_packed(rw, B, L)))
+                steps[probe] = 1e3 * step_s
+                log(f"{label} {probe}: CUDA step (submit+resolve) "
+                    f"{1e3 * step_s:.2f} ms median of 5 ({B} rows, L={L}, "
+                    f"e={e}, split={split}); first call {1e3 * dt:.1f} ms")
+                profile_step(seeder, rw, B, L, f"{label} {probe}")
+                if probe == "bucketed" and not split:
+                    time_probes(seeder, label)
+                del seeder
+                torch.cuda.empty_cache()
+        finally:
+            os.environ.pop("CHROMAP_TPU_PROBE", None)
+    want = outs["merge-sort", "cuda"]
+    same = {k: v[:2] == want[:2] for k, v in outs.items()}
+    total = int(np.frombuffer(want[0][:4], np.uint32)[0])
+    res = want[2]
+    log(f"{label}: (dl, full) byte-equal to the CUDA merge-sort step: "
+        + ", ".join(f"{p} {d} {v}" for (p, d), v in same.items())
+        + f"; candidates={total} batch_over={res[3]}; steps "
+        + ", ".join(f"{p} {ms:.2f} ms" for p, ms in steps.items()))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: a chunk download differs from the "
+                             "CUDA merge-sort step's")
     if split:
         if res[3]:
             raise AssertionError(f"{label}: the chunk went over budget")
@@ -759,6 +1172,61 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
             f"({100 * share:.2f}%)")
         if share <= 0:
             raise AssertionError(f"{label}: no drop-off lane stopped early")
+
+
+def time_probes(seeder, label: str) -> None:
+    """The index probe alone, by CUDA events, on the seeder's index at a
+    chunk's query count (26 per read, as in the step): the merged sort,
+    the bucketed search and searchsorted, on seeded queries of which
+    about 60% are index keys and 3% invalid (UMAX64). The three must
+    agree on every valid query."""
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.ops import device_seed as ds
+    from chromap_tpu_torch.ops.u64 import UMAX64, searchsorted_u64
+
+    M = ds.MZ_PER_READ * 32768
+    nk = seeder.hash_keys.numel()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randint(0, 1 << (2 * seeder.k), (M,), device="cuda",
+                      generator=g)
+    pick = torch.rand(M, device="cuda", generator=g)
+    keys = seeder.hash_keys[torch.randint(0, nk, (M,), device="cuda",
+                                          generator=g)]
+    q = torch.where(pick < 0.6, keys, q)
+    valid = pick < 0.97
+    q = torch.where(valid, q, UMAX64)
+    ib = max(1, (M - 1).bit_length())
+
+    def merge():
+        lf = ds._probe_merge_sort(seeder.hash_keys, q, M, ib)
+        return torch.clamp(lf & 0x7FFFFFFF, max=nk - 1), (lf < 0) & valid
+
+    def bucket():
+        return ds._probe_bucketed(seeder.probe_table, seeder.keys_lo, q,
+                                  valid, *seeder.probe)
+
+    def sortss():
+        loc = torch.clamp(searchsorted_u64(seeder.hash_keys, q), max=nk - 1)
+        return loc, (seeder.hash_keys[loc] == q) & valid
+
+    got = {n: f() for n, f in (("merge-sort", merge), ("bucketed", bucket),
+                               ("searchsorted", sortss))}
+    agree = all(torch.equal(v[1], got["merge-sort"][1])
+                and torch.equal(torch.where(valid, v[0].to(torch.int64), 0),
+                                torch.where(valid, got["merge-sort"][0]
+                                            .to(torch.int64), 0))
+                for v in got.values())
+    ms = {n: time_cuda(f) for n, f in (("merge-sort", merge),
+                                       ("bucketed", bucket),
+                                       ("searchsorted", sortss))}
+    log(f"{label}: the probe alone over {M} queries and {nk} keys (CUDA "
+        "events, median of 10): " + ", ".join(
+            f"{n} {t:.3f} ms" for n, t in ms.items())
+        + f"; found {int(got['merge-sort'][1].sum())}; all three agree on "
+        f"every valid query: {agree}")
+    if not agree:
+        raise AssertionError(f"{label}: the probes disagree")
 
 
 def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
@@ -801,7 +1269,7 @@ def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,path,hic,chunk")
+    ap.add_argument("--phases", default="kernels,path,hic,batch,flows,chunk")
     ap.add_argument("--genome-core", type=int, default=96_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
@@ -845,7 +1313,7 @@ def main() -> int:
     # the data (simulation + the port's index build) is made by a child
     # process while this one builds and checks the kernels
     data = None
-    if {"path", "hic", "chunk"} & set(phases):
+    if {"path", "hic", "batch", "flows", "chunk"} & set(phases):
         data = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--make-data",
              "--genome-core", str(args.genome_core),
@@ -872,6 +1340,8 @@ def main() -> int:
     for name, fn in (("path", lambda: phase_path(results, args.genome_core,
                                                  args.pairs)),
                      ("hic", lambda: phase_hic(results, args.pairs)),
+                     ("batch", lambda: phase_batch(results)),
+                     ("flows", lambda: phase_flows(results)),
                      ("chunk", lambda: phase_chunk(results))):
         if ok and name in phases:
             try:
@@ -885,10 +1355,13 @@ def main() -> int:
         return 1
 
     # launches: the drop-off kernel's from the Hi-C path's run, the
-    # others' from the BED path's run
+    # others' from the BED path's run; kernel B's adds those of the batch
+    # engine's device run
     launches = dict(results.get("launches", {}))
     launches["myers_dropoff"] = results.get("hic_launches", {}).get(
         "myers_dropoff", 0)
+    launches["myers"] = (launches.get("myers", 0)
+                         + results.get("batch_launches", 0))
     kern = []
     for name, src in KERNEL_SOURCES:
         r = results.get(name, {})

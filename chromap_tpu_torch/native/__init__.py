@@ -780,6 +780,75 @@ class NativeEngine:
             out[key] = out[key][:count]
         return out, stats
 
+    def map_pairs_device(self, r1_bytes, r1_off_ptr, r2_bytes, r2_off_ptr,
+                         n: int, base_read_id: int,
+                         cache_update_threshold: int, ref_codes: np.ndarray,
+                         device=None) -> Tuple[dict, np.ndarray]:
+        """C++ collects the verification work, the Myers batch runs on
+        the torch `device` (kernel B on CUDA, its plain version on the
+        CPU; None: the numpy form on the host), and C++ finishes
+        selection with the precomputed distances. `ref_codes` is the
+        concatenated reference as uint8 codes."""
+        ps_p = ctypes.POINTER(ctypes.c_int64)()
+        to_p = ctypes.POINTER(ctypes.c_int32)()
+        tl_p = ctypes.POINTER(ctypes.c_int32)()
+        tc_p = ctypes.POINTER(ctypes.c_uint8)()
+        tc_len = ctypes.c_int64()
+        n_items = self.lib.cn_collect_pairs(
+            self.ctx, r1_bytes, r1_off_ptr, r2_bytes, r2_off_ptr, n,
+            ctypes.byref(ps_p), ctypes.byref(to_p), ctypes.byref(tl_p),
+            ctypes.byref(tc_p), ctypes.byref(tc_len))
+
+        errors = np.full(max(1, n_items), 0, dtype=np.int32)
+        ends = np.zeros(max(1, n_items), dtype=np.int32)
+        if n_items > 0:
+            pattern_starts = np.ctypeslib.as_array(ps_p, shape=(n_items,))
+            text_offsets = np.ctypeslib.as_array(to_p, shape=(n_items,))
+            text_lengths = np.ctypeslib.as_array(tl_p, shape=(n_items,))
+            text_codes = np.ctypeslib.as_array(tc_p, shape=(tc_len.value,))
+            e = self.cfg.error_threshold
+            from ..ops import myers
+            for L in np.unique(text_lengths):
+                rows = np.flatnonzero(text_lengths == L)
+                pat_idx = (pattern_starts[rows, None]
+                           + np.arange(L + 2 * e)[None, :])
+                pats = ref_codes[pat_idx]
+                txt_idx = (text_offsets[rows, None]
+                           + np.arange(L)[None, :])
+                txts = text_codes[txt_idx]
+                if device is not None:
+                    err, endp = myers.banded_distance_batch(
+                        pats, txts, e, device=device)
+                else:
+                    err, endp = myers.banded_distance_batch_numpy(
+                        pats, txts, e)
+                errors[rows] = err
+                ends[rows] = endp
+
+        cap = max(1, n * max(1, self.cfg.max_num_best_mappings))
+        out = {
+            "rid": np.empty(cap, dtype=np.int32),
+            "read_id": np.empty(cap, dtype=np.uint32),
+            "start": np.empty(cap, dtype=np.uint32),
+            "flen": np.empty(cap, dtype=np.uint16),
+            "mapq": np.empty(cap, dtype=np.uint8),
+            "dir": np.empty(cap, dtype=np.uint8),
+            "uniq": np.empty(cap, dtype=np.uint8),
+            "posalen": np.empty(cap, dtype=np.uint16),
+            "negalen": np.empty(cap, dtype=np.uint16),
+        }
+        stats = np.zeros(5, dtype=np.int64)
+        count = self.lib.cn_map_pairs_ext(
+            self.ctx, r1_bytes, r1_off_ptr, r2_bytes, r2_off_ptr,
+            n, base_read_id, cache_update_threshold, _ptr(errors), _ptr(ends),
+            _ptr(out["rid"]), _ptr(out["read_id"]), _ptr(out["start"]),
+            _ptr(out["flen"]), _ptr(out["mapq"]), _ptr(out["dir"]),
+            _ptr(out["uniq"]), _ptr(out["posalen"]), _ptr(out["negalen"]),
+            _ptr(stats))
+        for key in out:
+            out[key] = out[key][:count]
+        return out, stats
+
 
 class NativeFastxReader:
     """Batched FASTQ(.gz) reader; batches stay in native buffers and are

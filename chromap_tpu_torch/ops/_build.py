@@ -156,6 +156,20 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+def resolve_device(device):
+    """The torch device for `device`; raises when CUDA is asked for and
+    absent (the port never moves to the CPU on its own)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available (pass --torch-device cpu to run the "
+                           "plain path on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 def cuda_operands(what: str, *tensors) -> None:
     """Wrapper-side checks: every operand a contiguous tensor on one CUDA
     device."""

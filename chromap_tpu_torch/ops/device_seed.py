@@ -10,7 +10,9 @@ on the device, what the native finish stage needs per read:
   index probe  lower_bound of every minimizer hash in the sorted key
                array by one merged u64 sort (`_probe_merge_sort`), or
                searchsorted when the hash is too wide to pack (k > 22 at
-               large batches)
+               large batches) or CHROMAP_TPU_PROBE=sortss forces it; with
+               CHROMAP_TPU_PROBE=bucket, a binary search bounded by a
+               bucket table over the top hash bits (`bucket_probe_table`)
   expansion    ragged occurrence-list gather with the uint32 candidate
                arithmetic of index.cc:491-505
   clustering   kernel C (`cluster_scan`): the exact sequential cluster
@@ -39,12 +41,14 @@ not routed anywhere: it raises.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from ._build import resolve_device
 from .dense_minimizer import dense_minimizer
 from .myers import myers, myers_dropoff
 from .u64 import (M32, MAX64, MIN32, MIN64, UMAX64, from_numpy_u32,
@@ -222,6 +226,57 @@ def _probe_merge_sort(hash_keys, mz_h, Mtot: int, ib: int):
     return _scatter_rows(pk | (found << 31), qidx, Mtot)
 
 
+def bucket_probe_table(keys: np.ndarray, k: int):
+    """The bucketed probe's table over sorted u64 `keys` (nk > 0), as the
+    JAX seeder builds it: bucket b of the top `tbits` bits of the 2k-bit
+    hash holds keys table[b]..table[b + 1] - 1. Returns (table int32
+    (2^tbits + 1,), shift = 2k - tbits, depth = the halvings that bound
+    a search inside the largest bucket)."""
+    nk = len(keys)
+    tbits = min(22, max(10, int(np.ceil(np.log2(nk))) + 2))
+    # the search compares only the low `shift` bits via a u32 key copy,
+    # so the bucket must pin the rest: tbits >= 2k - 32
+    tbits = max(tbits, 2 * k - 32)
+    shift = max(0, 2 * k - tbits)
+    nb = 1 << tbits
+    bounds = np.arange(nb + 1, dtype=np.uint64) << np.uint64(shift)
+    table = np.searchsorted(keys, bounds, side="left").astype(np.int32)
+    max_bucket = int(np.max(table[1:] - table[:-1]))
+    depth = max(1, int(np.ceil(np.log2(max(max_bucket, 1)))) + 1)
+    return table, shift, depth
+
+
+def _probe_bucketed(probe_table, keys_lo, mz_h, mz_valid, shift: int,
+                    depth: int):
+    """lower_bound of every query hash by a binary search inside its
+    bucket (the JAX seeder's bucketed probe): 2 + depth gathers of int32
+    words. Hash64 output is uniform, so `depth` halvings bound every
+    bucket; inside one bucket the keys share their top bits, so the
+    search compares the low `shift` (<= 32) bits of `keys_lo`, the keys'
+    u32 low words. Returns (loc int32 clamped to nk - 1, found)."""
+    nk = keys_lo.shape[0]
+    nb = probe_table.shape[0] - 1
+    smask = (1 << shift) - 1 if shift < 32 else M32
+    ql = mz_h & smask                                 # non-negative int64
+    bk = torch.clamp(srl64(mz_h, shift), max=nb - 1)
+    lo = probe_table[bk]
+    hi0 = probe_table[bk + 1]
+    hi = hi0
+    for _ in range(depth):
+        upd = lo < hi
+        mid = (lo + hi) >> 1                          # nk < 2^31: no wrap
+        gk = u32_of(keys_lo[torch.clamp(mid, max=nk - 1)]) & smask
+        right = gk < ql
+        lo = torch.where(upd & right, mid + 1, lo)
+        hi = torch.where(upd & ~right, mid, hi)
+    # the bucket pins the top bits, so a low-bits match at the converged
+    # lower bound is an exact key match
+    loc = torch.clamp(lo, max=nk - 1)
+    found = ((lo < hi0) & ((u32_of(keys_lo[loc]) & smask) == ql)
+             & mz_valid)
+    return loc, found
+
+
 def _flat_compact_T(mask_T, cap: int):
     """Transposed-layout flat compaction: mask_T is (S, B) slot-major.
     Output order: read 0's set slots in ascending slot order, then read
@@ -303,13 +358,17 @@ def _pack_dropoff(err, end, rml):
 
 
 def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
-                num_refs: int, split: bool = False):
+                num_refs: int, split: bool = False, probe=None):
     """Returns the batch step; the index/reference tensors are arguments,
     as in the JAX program. `split` verifies with drop-off Myers (Hi-C)
-    instead of banded Myers."""
+    instead of banded Myers. `probe` picks the index probe: None the
+    merged sort (searchsorted where the hash is too wide to pack),
+    "sortss" searchsorted always, (shift, depth) the bucketed search,
+    which takes the `probe_table` and `keys_lo` tensors."""
 
     def step(rw, lengths, hash_keys, offcnt, occurrences,
-             ref_words, ref_nwords, ref_lens, ref_offsets, *,
+             ref_words, ref_nwords, ref_lens, ref_offsets,
+             probe_table=None, keys_lo=None, *,
              L: int, B: int, Mtot: int, Htot: int, captot: int):
         # rw: (B, W + WN) u32 rows as int32: W 2-bit-code words, then WN
         # N-bitmap words. The hit sort key packs row<<47 | strand<<46 |
@@ -363,13 +422,16 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         # ---- index probe -------------------------------------------------
         ib = max(1, (Mtot - 1).bit_length())
         nk = hash_keys.shape[0]
-        if 2 * k + 1 + ib <= 64:
+        if isinstance(probe, tuple):
+            loc, found = _probe_bucketed(probe_table, keys_lo, mz_h,
+                                         mz_valid, *probe)
+        elif 2 * k + 1 + ib <= 64 and probe != "sortss":
             lf = _probe_merge_sort(hash_keys, mz_h, Mtot, ib)
             loc = torch.clamp(lf & 0x7FFFFFFF, max=nk - 1)
             found = ((lf & MIN32) != 0) & mz_valid
         else:
             # hash too wide to pack with the query index (k > 22 at
-            # large batches): unsigned searchsorted
+            # large batches), or forced: unsigned searchsorted
             loc = torch.clamp(searchsorted_u64(hash_keys, mz_h), max=nk - 1)
             found = (hash_keys[loc] == mz_h) & mz_valid
         oc = offcnt[loc.to(I64)]
@@ -588,8 +650,9 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
 
 
 @functools.lru_cache(maxsize=8)
-def _cached_step(k, w, e, f0, f1, min_seeds, num_refs, split=False):
-    return _build_step(k, w, e, f0, f1, min_seeds, num_refs, split)
+def _cached_step(k, w, e, f0, f1, min_seeds, num_refs, split=False,
+                 probe=None):
+    return _build_step(k, w, e, f0, f1, min_seeds, num_refs, split, probe)
 
 
 def unpack_download(meta32: np.ndarray, cand64: np.ndarray, L: int):
@@ -658,19 +721,6 @@ def _pack_genome(ref_codes: np.ndarray):
 # ---------------------------------------------------------------------
 # the seeder
 # ---------------------------------------------------------------------
-
-def resolve_device(device) -> torch.device:
-    """The torch device for `device`; raises when CUDA is asked for and
-    absent (the port never moves to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda is not "
-                           "available (pass --torch-device cpu to run the "
-                           "plain path on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
 
 def index_tiers(max_offset: int, max_occ_pos: int, num_refs: int):
     """(offcnt in u32, occurrences in u32): the narrow tiers hold offsets
@@ -762,13 +812,26 @@ class DeviceSeeder:
         arrays = seeder_arrays_from_numpy(index, ref_seqs)
         for name, arr in arrays.items():
             setattr(self, name, _to_tensor(arr, self.device))
+        # the index probe, read from CHROMAP_TPU_PROBE when the seeder is
+        # built: the merged sort by default; "bucket" builds the bucket
+        # table and the keys' u32 low words; "sortss" forces searchsorted
+        keys = arrays["hash_keys"]
+        mode = os.environ.get("CHROMAP_TPU_PROBE")
+        self.probe = "sortss" if mode == "sortss" else None
+        self.probe_table = self.keys_lo = None
+        if len(keys) > 0 and mode == "bucket":
+            table, shift, depth = bucket_probe_table(keys, self.k)
+            self.probe = (shift, depth)
+            self.probe_table = _to_tensor(table, self.device)
+            self.keys_lo = _to_tensor(
+                (keys & np.uint64(M32)).astype(np.uint32), self.device)
         self._lengths_cache = {}
         # resolved chunks, of which over a flat budget (mapped on the
         # host), and their rows, of which flagged FLAG_FALLBACK
         self.stats = dict(chunks=0, over_chunks=0, rows=0, fallback_rows=0)
         self._step = _cached_step(self.k, self.w, self.e, self.f0, self.f1,
                                   self.min_num_seeds, self.num_refs,
-                                  self.split)
+                                  self.split, self.probe)
 
     def submit(self, codes: np.ndarray, lengths: np.ndarray):
         """Dispatch one batch of (B, L) u8 codes; returns an opaque
@@ -806,7 +869,8 @@ class DeviceSeeder:
         dl, full = self._step(rw_dev, lend, self.hash_keys, self.offcnt,
                               self.occurrences, self.ref_words,
                               self.ref_nwords, self.ref_lens,
-                              self.ref_offsets,
+                              self.ref_offsets, self.probe_table,
+                              self.keys_lo,
                               L=L, B=B, Mtot=Mtot, Htot=Htot, captot=captot)
         event = None
         if cuda:
@@ -885,7 +949,8 @@ def get_device_seeder(index, ref_seqs, error_threshold: int,
     if cache_key is None:
         return build()
     key = (cache_key, int(error_threshold), int(min_num_seeds),
-           tuple(int(f) for f in max_seed_frequencies), split, str(device))
+           tuple(int(f) for f in max_seed_frequencies), split, str(device),
+           os.environ.get("CHROMAP_TPU_PROBE"))
     seeder = _seeder_cache.get(key)
     if seeder is None:
         seeder = build()

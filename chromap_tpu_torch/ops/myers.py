@@ -1,6 +1,7 @@
 """Batched banded Myers bit-parallel edit distance: the counterpart of
 chromap_tpu/ops/pallas_myers.py (`_myers_kernel`, `myers_jnp`,
-`myers_dropoff_jnp`, `banded_distance_batch`).
+`myers_dropoff_jnp`, `banded_distance_batch`,
+`banded_distance_batch_numpy`).
 
 `myers(patterns_T, texts_T, e, read_length)` takes the JAX public layout
 -- (L + 2e, N) and (L, N) int32 codes, one candidate per column -- and
@@ -186,13 +187,69 @@ myers.launches = 0
 
 
 def banded_distance_batch(patterns: np.ndarray, texts: np.ndarray, e: int,
-                          device="cpu") -> Tuple[np.ndarray, np.ndarray]:
-    """Host wrapper: (N, L+2e) / (N, L) uint8 code arrays -> (errors,
-    ends) as numpy int32, computed on `device`."""
+                          device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Host wrapper, the entry of the batch engine and of the native
+    engine's `map_pairs_device`: (N, L+2e) / (N, L) code rows (uint8) ->
+    (errors, ends) as numpy int32, computed on `device` -- kernel B on
+    CUDA (asking for CUDA without a card raises), the plain version on the
+    CPU. The rows go to the device as they are and are transposed and
+    widened to the kernel's int32 (rows, N) planes there: a uint8 upload
+    moves a quarter of the bytes of an int32 one. Any N: no padding."""
     n, lp = patterns.shape
     L = texts.shape[1]
     assert lp == L + 2 * e
-    pt = torch.from_numpy(np.ascontiguousarray(patterns.T, dtype=np.int32))
-    tt = torch.from_numpy(np.ascontiguousarray(texts.T, dtype=np.int32))
-    errors, endpos = myers(pt.to(device), tt.to(device), e, L)
+    dev = _build.resolve_device(device)
+    planes = []
+    for rows in (patterns, texts):
+        up = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        planes.append(torch.empty((up.shape[1], n), dtype=I32,
+                                  device=dev).copy_(up.T))
+    errors, endpos = myers(planes[0], planes[1], e, L)
     return errors.cpu().numpy(), endpos.cpu().numpy()
+
+
+def banded_distance_batch_numpy(patterns: np.ndarray, texts: np.ndarray,
+                                e: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized numpy implementation (uint32 exact), the JAX package's
+    own: the batch engine's form below its device size rule and the
+    tests' reference."""
+    n, lp = patterns.shape
+    L = texts.shape[1]
+    U32 = np.uint32(0xFFFFFFFF)
+    highest = np.uint32(1 << (2 * e))
+    peq = np.zeros((5, n), dtype=np.uint32)
+    for i in range(2 * e):
+        row = patterns[:, i]
+        for c in range(5):
+            peq[c] = np.where(row == c, peq[c] | highest, peq[c])
+        peq >>= np.uint32(1)
+    vp = np.zeros(n, dtype=np.uint32)
+    vn = np.zeros(n, dtype=np.uint32)
+    num_err = np.zeros(n, dtype=np.int32)
+    with np.errstate(over="ignore"):
+        for i in range(L):
+            row = patterns[:, i + 2 * e]
+            for c in range(5):
+                peq[c] = np.where(row == c, peq[c] | highest, peq[c])
+            t = texts[:, i]
+            x = np.select([t == c for c in range(5)],
+                          [peq[c] for c in range(5)])
+            x = (x | vn).astype(np.uint32)
+            d0 = (((vp + (x & vp)) & U32) ^ vp) | x
+            hn = vp & d0
+            hp = (vn | (~(vp | d0) & U32)).astype(np.uint32)
+            x2 = d0 >> np.uint32(1)
+            vn = x2 & hp
+            vp = (hn | (~(x2 | hp) & U32)).astype(np.uint32)
+            num_err += 1 - (d0 & 1).astype(np.int32)
+            peq >>= np.uint32(1)
+    band_start = L - 1
+    min_err = num_err.copy()
+    end_pos = np.full(n, band_start, dtype=np.int32)
+    for i in range(2 * e):
+        num_err = (num_err + ((vp >> np.uint32(i)) & 1).astype(np.int32)
+                   - ((vn >> np.uint32(i)) & 1).astype(np.int32))
+        better = (num_err < min_err) | ((num_err == min_err) & (i + 1 == e))
+        end_pos = np.where(better, band_start + 1 + i, end_pos)
+        min_err = np.minimum(min_err, num_err)
+    return min_err.astype(np.int32), end_pos.astype(np.int32)

@@ -121,6 +121,7 @@ class MappingPipeline:
     def __init__(self, cfg: MappingConfig):
         self.cfg = cfg
         self._device_seeder = None
+        self.batch_mapper = None  # the batch engine of the last paired run
         if cfg.use_device:
             # fail before any mapping when the asked-for device is absent,
             # even if no chunk would have reached it
@@ -488,9 +489,13 @@ class MappingPipeline:
                     # 418-419) and is a no-op
                     native_engine.set_rid_rank(self.custom_rid_rank)
                 log("Using native host engine.")
-            else:
+            elif cfg.use_device:
                 log(f"Native engine unavailable "
                     f"({self._native_engine_err}).")
+            else:
+                log(f"Native engine unavailable "
+                    f"({self._native_engine_err}); "
+                    "falling back to batch engine.")
 
         # full-native fast path: native FASTQ IO + mapping + postprocess
         if (native_engine is not None and not cfg.read_format
@@ -503,7 +508,14 @@ class MappingPipeline:
             # sorted shards and k-way merges them at output
             self._map_paired_end_full_native(native_engine)
             return
-        if cfg.use_device and native_engine is None:
+        # under --device the batch engine maps only when it was asked for
+        # (--engine batch): a native engine that was chosen and failed to
+        # load raises, the run never switches engines on its own
+        use_batch = (native_engine is None
+                     and cfg.batch_engine_eligible(paired=True)
+                     and not (cfg.use_device
+                              and cfg.native_engine_eligible(paired=True)))
+        if cfg.use_device and not use_batch and native_engine is None:
             raise RuntimeError(
                 "--device needs the native engine"
                 + (f" ({self._native_engine_err})"
@@ -511,10 +523,16 @@ class MappingPipeline:
                 + "; refusing to map on the host instead")
 
         batch_mapper = None
-        if native_engine is None and cfg.batch_engine_eligible(paired=True):
-            raise NotImplementedError(
-                "batch engine not yet ported to chromap_tpu_torch (the "
-                "native engine is unavailable or not selected)")
+        if use_batch:
+            from .batch.pipeline import BatchMapper
+            batch_mapper = BatchMapper(cfg, self.index, self.ref_seqs,
+                                       self.ref_lengths, self.selector,
+                                       self.candidate_generator,
+                                       self.draft_generator)
+            if cfg.use_device:
+                kind = ("CUDA" if cfg.torch_device == "cuda"
+                        else "CPU (plain torch)")
+                log(f"Using {kind} Myers verification (batch engine).")
 
         generator = MT19937(11)
         t_map = time.time()
@@ -619,6 +637,9 @@ class MappingPipeline:
             self.num_mapped_reads += batch_mapper.stats_num_mapped_reads
             self.num_uniquely_mapped_reads += \
                 batch_mapper.stats_num_uniquely_mapped
+            log("Batch engine time: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in batch_mapper.seconds.items()))
+        self.batch_mapper = batch_mapper
         log(f"Mapped all reads in {time.time() - t_map:.2f}s.")
         self._output_stats()
         if not cfg.is_bulk_data:

@@ -254,6 +254,53 @@ def test_cluster_kernel_equals_plain(card, B, H1, e):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n", [4096, 4097, 100003])
+def test_banded_distance_batch_from_host_rows(card, n):
+    """The batch engine's entry: uint8 (N, L+2e) / (N, L) host rows go to
+    the card, are transposed and widened there, and kernel B's result
+    equals the uint32 numpy form; one launch per call."""
+    rng = np.random.default_rng(n)
+    L, e = 100, 8
+    pats = rng.integers(0, 4, (n, L + 2 * e)).astype(np.uint8)
+    pats[rng.random(pats.shape) < 0.003] = 4
+    texts = pats[:, e:e + L].copy()
+    edit = rng.random((n, L)) < 0.03
+    texts[edit] = rng.integers(0, 5, int(edit.sum()))
+    texts[::5] = rng.integers(0, 4, (len(range(0, n, 5)), L))
+    before = my.myers.launches
+    got = my.banded_distance_batch(pats, texts, e)
+    assert my.myers.launches == before + 1
+    want = my.banded_distance_batch_numpy(pats, texts, e)
+    for a, b in zip(got, want):
+        assert a.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    assert (got[0] <= e).any() and (got[0] > e).any()
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_bucketed_seeder_card_equals_cpu(card, small_world, monkeypatch,
+                                         split):
+    """CHROMAP_TPU_PROBE=bucket: the bucketed step's CUDA download equals
+    its CPU download and the merge-sort download."""
+    index, ref_codes, ref_seqs = small_world
+    B, L = 4096, 100
+    reads = _reads(ref_codes, np.random.default_rng(31), B, L)
+    rw = ds._pack_reads(reads)
+    outs = []
+    for mode, dev in (("bucket", card), ("bucket", "cpu"), (None, card)):
+        if mode is None:
+            monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
+        else:
+            monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
+        seeder = ds.DeviceSeeder(index, ref_seqs, 4 if split else E,
+                                 MIN_SEEDS, F, device=dev, split=split)
+        assert isinstance(seeder.probe, tuple) == (mode == "bucket")
+        (dl, full, _, _), _, _ = seeder.submit_packed(rw, B, L)
+        outs.append((dl.cpu().numpy().tobytes(),
+                     full.cpu().numpy().tobytes()))
+    assert outs[0] == outs[1] == outs[2]
+
+
 def test_wrappers_refuse_bad_operands(card):
     codes = torch.zeros((10, 8), dtype=torch.int64, device=card)
     lengths = torch.full((1, 8), 10, dtype=torch.int32, device=card)

@@ -6,10 +6,10 @@ path matches too). The Hi-C flow (`--preset hic`: split alignment, pairs
 output, low-memory mode) goes through the split seeder the same way and
 must byte-match its goldens, plain, with `--chr-order` /
 `--pairs-natural-chr-order`, and barcoded. Also pinned: thread-count
-invariance, that a device
-failure raises instead of mapping on the host, that CUDA without a card
-raises, and that the package neither imports nor needs JAX or the JAX
-package."""
+invariance, that a device failure raises instead of mapping on the host,
+that CUDA without a card raises, and that the package neither imports
+nor needs JAX or the JAX package (on the device path and through the
+batch engine)."""
 
 import ast
 import os
@@ -169,24 +169,31 @@ def test_mesh_devices_not_ported(sim_data, tmp_path):
 
 def test_port_runs_without_jax(sim_data, golden_dir, tmp_path):
     """With `jax` and `chromap_tpu` unimportable, the port still builds
-    its index and maps the set through the device path."""
+    its index and maps the set through the device path, and through the
+    batch engine with its Myers batch on the device."""
     d = sim_data
-    out = tmp_path / "nojax.bed"
+    outs = [tmp_path / "nojax.bed", tmp_path / "nojax_batch.bed"]
     code = (
         "import sys, runpy\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['chromap_tpu'] = None\n"
         "sys.argv = ['chromap_tpu_torch.cli'] + sys.argv[1:]\n"
         "runpy.run_module('chromap_tpu_torch.cli', run_name='__main__')\n")
-    for args in (["-i", "-r", f"{d}/ref.fa", "-o", str(tmp_path / "idx")],
-                 ["-x", str(tmp_path / "idx"), "-r", f"{d}/ref.fa",
-                  "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-o", str(out)]
-                 + DEVICE_ARGS):
+    maps = [["-x", str(tmp_path / "idx"), "-r", f"{d}/ref.fa",
+             "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-o", str(out)]
+            + DEVICE_ARGS for out in outs]
+    maps[1] += ["--engine", "batch"]
+    for args in [["-i", "-r", f"{d}/ref.fa", "-o", str(tmp_path / "idx")]] \
+            + maps:
         res = subprocess.run([sys.executable, "-c", code] + args,
                              capture_output=True, text=True, cwd=ROOT,
                              env=ENV)
         assert res.returncode == 0, res.stderr
-    assert out.read_bytes() == (golden_dir / "sim_default.bed").read_bytes()
+    assert "Using CPU (plain torch) Myers verification (batch engine)" \
+        in res.stderr
+    for out in outs:
+        assert out.read_bytes() == \
+            (golden_dir / "sim_default.bed").read_bytes()
 
 
 def _imports(path: Path):
