@@ -54,15 +54,26 @@ Phases, in order (any failure exits non-zero before the last line):
            PAF, SAM, barcodes with summary, --chr-order, single-end,
            --read-format, the batch engine's four goldens, --num-shards
            then --merge-shards, and cache-active data against a host
-           --no-cache run. Each output must equal its golden; each seeder
-           flow must seed a chunk on the card, each batch flow launch
-           kernel B.
+           --no-cache run; then the reference chromap's BED and pairs
+           goldens on tests/data/ with a device batch of two pairs. Each
+           output must equal its golden; each seeder flow must seed a
+           chunk on the card, each batch flow launch kernel B.
   chunk    one 16384-pair chunk of the path's data, and one of the Hi-C
            reads in split mode, seeded by the port on CUDA and by its
            plain path on the CPU, with the merge-sort probe, the
            bucketed one (CHROMAP_TPU_PROBE=bucket) and searchsorted
            (=sortss): all six downloads must be byte-equal. Times and
            profiles each probe's step, and times the probe alone.
+  mesh     the data mesh (parallel/sharding.py, MeshSeeder) rehearsed as
+           shards of the one card: sharded_myers over [cuda:0, cuda:0] at
+           N = 65536 equal to kernel B's plain version; the chunk phase's
+           BED and split chunks through MeshSeeder over 2 and 4 shards of
+           cuda:0 (and over every card when there are two or more), each
+           resolved chunk equal to DeviceSeeder's, no shard over budget,
+           timed and profiled against the single seeder; and the path's
+           100k BED pairs through MappingPipeline with a 2-shard
+           MeshSeeder, byte-equal to the host-only BED with every chunk
+           sharded and each kernel launched once per shard per chunk.
 
 It prints the card (nvidia-smi name and power limit) first and again
 before the JSON line of per-kernel numbers, and as its last line
@@ -516,12 +527,16 @@ def make_batch_reads() -> None:
 FLOWS = os.path.join(DATA, "flows")        # tests/simulate.py's 5000 pairs
 FLOWS_MC = os.path.join(DATA, "flows_mc")  # and its multi-chromosome set
 DUP = os.path.join(DATA, "flows_dup")      # 200 pairs repeated 30 times
+# the bundled reads of tests/data/ (10 pairs, written by the reference
+# chromap's test suite), linked in as r1.fq / r2.fq / ref.fa
+FLOWS_REF = os.path.join(DATA, "flows_ref")
 
 
 def make_flows_data() -> None:
     """The simulated sets that tests/golden/ pins (5000 pairs with
-    barcodes; the multi-chromosome set), each indexed by the port's CLI,
-    and a duplicate-heavy set that activates the candidate cache."""
+    barcodes; the multi-chromosome set) and tests/data/, each indexed by
+    the port's CLI, and a duplicate-heavy set that activates the
+    candidate cache."""
     marker = os.path.join(FLOWS, "ready")
     if os.path.exists(marker):
         return
@@ -531,7 +546,13 @@ def make_flows_data() -> None:
     write_simulated_dataset(FLOWS)
     write_simulated_barcodes(FLOWS)
     write_simulated_multichrom_dataset(FLOWS_MC)
-    for d in (FLOWS, FLOWS_MC):
+    os.makedirs(FLOWS_REF, exist_ok=True)
+    for src, name in (("ref.fa", "ref.fa"), ("read1.fq", "r1.fq"),
+                      ("read2.fq", "r2.fq")):
+        if not os.path.exists(os.path.join(FLOWS_REF, name)):
+            os.symlink(os.path.join(ROOT, "tests", "data", src),
+                       os.path.join(FLOWS_REF, name))
+    for d in (FLOWS, FLOWS_MC, FLOWS_REF):
         subprocess.run(
             [sys.executable, "-m", "chromap_tpu_torch.cli", "-i",
              "-r", os.path.join(d, "ref.fa"), "-o", os.path.join(d, "index")],
@@ -952,6 +973,22 @@ FLOW_CASES = [
 ]
 FLOW_DEVICE = ["--device", "--torch-device", "cuda",
                "--device-batch-size", "512"]
+# (golden, paired, arguments): the reference chromap's BED and pairs
+# goldens on tests/data/ (tests/test_parity.py's cases), mapped with a
+# device batch of two pairs so that the 10-pair set reaches the seeder
+REF_CASES = [
+    ("se.bed", False, []),
+    ("pe.bed", True, []),
+    ("atac-equiv.bed", True, ["-l", "2000", "--trim-adapters",
+                              "--remove-pcr-duplicates", "--Tn5-shift",
+                              "--BED"]),
+    ("chip-equiv.bed", True, ["-l", "2000", "--remove-pcr-duplicates",
+                              "--BED"]),
+    ("hic.pairs", True, ["-e", "4", "-q", "1", "--split-alignment",
+                         "--pairs"]),
+]
+REF_DEVICE = ["--device", "--torch-device", "cuda", "--device-batch-size",
+              "2"]
 
 
 def cli_run(argv) -> str:
@@ -1024,6 +1061,17 @@ def phase_flows(results: dict) -> None:
         check(f"{kind} {name}", ok, f"{wall:.2f}s, device chunks {chunks}, "
               f"kernel B launches {n_b}, on the card {on_card};", on_card)
 
+    for name, paired, extra in REF_CASES:
+        out = os.path.join(DATA, f"flow_ref_{name}")
+        text, chunks, _, wall = flow_run(FLOWS_REF, out, extra + REF_DEVICE,
+                                         paired)
+        with open(out, "rb") as f:
+            ok = f.read() == golden(name)
+        on_card = chunks >= 1 and "Using CUDA device seeding" in text
+        check(f"tests/data {name}", ok, f"{wall:.2f}s, device chunks "
+              f"{chunks}, on the card {on_card};", on_card,
+              "the reference chromap's golden")
+
     # --num-shards 2 on the device, then --merge-shards
     out = os.path.join(DATA, "flow_sharded.bed")
     chunks = 0
@@ -1050,7 +1098,7 @@ def phase_flows(results: dict) -> None:
     check("cache-active (device vs host --no-cache)",
           outs["device"] == outs["host"] and bool(outs["host"]),
           f"device chunks {c};", c >= 1, "the host run")
-    log(f"flows: {len(FLOW_CASES) + 2} flows in "
+    log(f"flows: {len(FLOW_CASES) + len(REF_CASES) + 2} flows in "
         f"{time.time() - t_phase:.1f}s, kernel B launches {launches}")
     if bad:
         raise AssertionError(f"flows that failed: {bad}")
@@ -1229,6 +1277,189 @@ def time_probes(seeder, label: str) -> None:
         raise AssertionError(f"{label}: the probes disagree")
 
 
+# ---------------------------------------------------------------------
+# phase: mesh
+# ---------------------------------------------------------------------
+
+def phase_mesh(results: dict, pairs: int) -> None:
+    import torch
+    from chromap_tpu_torch.index.index import MinimizerIndex
+    from chromap_tpu_torch.io.fastx import load_all_sequences
+
+    launches = {"sharded_myers": mesh_sharded_myers()}
+    index = MinimizerIndex.load(os.path.join(DATA, "index"))
+    ref_seqs = [bytes(r.seq) for r in
+                load_all_sequences(os.path.join(DATA, "ref.fa"))]
+    card = torch.device("cuda", 0)
+    meshes = [("2 shards on cuda:0", [card] * 2),
+              ("4 shards on cuda:0", [card] * 4)]
+    if torch.cuda.device_count() >= 2:
+        from chromap_tpu_torch.parallel.sharding import make_data_mesh
+        meshes.append((f"{torch.cuda.device_count()} cards",
+                       make_data_mesh(None, "cuda")))
+    else:
+        log("mesh: one card visible; the mesh over distinct cards is not "
+            "run")
+    # the BED path's chunk (e = 8), then the Hi-C path's in split mode
+    mesh_chunk("BED", index, ref_seqs, "r", 8, False, meshes)
+    mesh_chunk("Hi-C split", index, ref_seqs, "hic_r", 4, True, meshes)
+    launches.update(mesh_path(index, ref_seqs, pairs))
+    log(f"mesh: launches in the mesh phase {json.dumps(launches)}")
+    results["mesh_launches"] = launches
+
+
+def mesh_sharded_myers() -> int:
+    """sharded_myers over [cuda:0, cuda:0] at the BED step's kernel B
+    shape: equal to kernel B's plain version on the whole batch, and its
+    accepted count to the numpy form's. Returns kernel B's launches."""
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.ops import myers as my
+    from chromap_tpu_torch.parallel.sharding import sharded_myers
+
+    N, L, e = 65536, 100, 8
+    p, t = kernel_inputs_myers(np.random.default_rng(13), L, N, e)
+    pn, tn = p.cpu().numpy(), t.cpu().numpy()
+    devices = [torch.device("cuda", 0)] * 2
+    n0 = my.myers.launches
+    errors, ends, accepted = sharded_myers(devices, pn, tn, e, L)
+    n_launch = my.myers.launches - n0
+    want = [x.cpu().numpy() for x in my.myers_plain(p, t, e, L)]
+    np_err, _ = my.banded_distance_batch_numpy(pn.T, tn.T, e)
+    same = (np.array_equal(errors, want[0]) and np.array_equal(ends, want[1])
+            and accepted == int((np_err <= e).sum()))
+    ms = 1e3 * host_median(lambda: sharded_myers(devices, pn, tn, e, L))
+    ms1 = 1e3 * host_median(lambda: [x.cpu() for x in my.myers(
+        torch.from_numpy(pn).cuda(), torch.from_numpy(tn).cuda(), e, L)])
+    log(f"mesh sharded_myers N={N} L={L} e={e} over 2 shards on cuda:0: "
+        f"equal to kernel B's plain version and accepted={accepted} equal "
+        f"to banded_distance_batch_numpy's: {same}; kernel B launches "
+        f"{n_launch}; the call {ms:.3f} ms against one unsharded upload + "
+        f"launch + download {ms1:.3f} ms (host clock, median of 5)")
+    if not same or n_launch != 2:
+        raise AssertionError("sharded_myers differs from kernel B's plain "
+                             "version or the numpy form")
+    return n_launch
+
+
+def _flat(res):
+    meta, pos, cmeta, over = res
+    return [meta, pos] + (list(cmeta) if isinstance(cmeta, tuple)
+                          else [cmeta]) + [over]
+
+
+def mesh_chunk(label: str, index, ref_seqs, reads: str, e: int, split: bool,
+               meshes) -> None:
+    """The path's 16384-pair chunk through MeshSeeder over each device
+    list: the resolved arrays must equal DeviceSeeder's on CUDA, and no
+    shard may go over its budget. Step times (host clock, median of 5)
+    against the single seeder's, and each step under the profiler."""
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.ops import device_seed as ds
+
+    codes = read_chunk(16384, reads)
+    B, L = codes.shape
+    rw = ds._pack_reads(codes)
+    args = (index, ref_seqs, e, 2, (500, 1000))
+    single = ds.DeviceSeeder(*args, device="cuda", split=split)
+    want = _flat(single.resolve(single.submit_packed(rw, B, L)))
+    steps = {"single": 1e3 * host_median(
+        lambda: single.resolve(single.submit_packed(rw, B, L)))}
+    del single
+    torch.cuda.empty_cache()
+    for name, devices in meshes:
+        for dev in set(devices):
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh = ds.MeshSeeder(*args, devices, split=split)
+        handle = mesh.submit_packed(rw, B, L)
+        got = _flat(mesh.resolve(handle))
+        over = [i for i, (dl, _, _, _) in enumerate(handle[0])
+                if dl.numpy()[1]]
+        if over:
+            raise AssertionError(f"mesh {label} {name}: shard(s) {over} of "
+                                 f"{len(devices)} over their flat budget")
+        same = (len(got) == len(want) and got[-1] == want[-1]
+                and all(np.array_equal(a, b)
+                        for a, b in zip(got[:-1], want[:-1])))
+        steps[name] = 1e3 * host_median(
+            lambda: mesh.resolve(mesh.submit_packed(rw, B, L)))
+        peak = ", ".join(
+            f"{d}: {torch.cuda.max_memory_allocated(d) / 2**20:.1f} MiB"
+            for d in sorted(set(devices), key=str))
+        totals = [int(dl.numpy()[0]) for dl, _, _, _ in handle[0]]
+        log(f"mesh {label} {name}: resolved arrays equal to the single "
+            f"seeder's on CUDA: {same}; candidates per shard {totals}; step "
+            f"(submit+resolve) {steps[name]:.2f} ms against the single "
+            f"seeder's {steps['single']:.2f} ms (host clock, median of 5); "
+            f"peak device memory {peak}")
+        if not same:
+            raise AssertionError(f"mesh {label} {name}: the mesh's resolved "
+                                 "chunk differs from the single seeder's")
+        profile_step(mesh, rw, B, L, f"mesh {label} {name}")
+        del mesh, handle
+        torch.cuda.empty_cache()
+
+
+def mesh_path(index, ref_seqs, pairs: int) -> dict:
+    """The path's 100k BED pairs through MappingPipeline with a 2-shard
+    MeshSeeder on cuda:0 (handed to the pipeline in place of the cached
+    seeder, as --mesh-devices 2 would on two cards): byte-equal to the
+    host-only BED, every chunk sharded, each kernel launched once per
+    shard per device chunk. Returns the launches of the first run."""
+    import torch
+    from chromap_tpu_torch.ops import dense_minimizer as dm
+    from chromap_tpu_torch.ops import device_seed as ds
+    from chromap_tpu_torch.ops import myers as my
+
+    host = os.path.join(DATA, "host.bed")
+    if not os.path.exists(host):
+        map_once(False, host)
+    card = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(card)
+    mesh = ds.MeshSeeder(index, ref_seqs, 8, 2, (500, 1000), [card] * 2)
+    wrappers = {"dense_minimizer": dm.dense_minimizer, "myers": my.myers,
+                "cluster_scan": ds.cluster_scan}
+    cached = ds.get_device_seeder
+    ds.get_device_seeder = lambda *a, **kw: mesh
+    walls, launches, st = [], None, None
+    try:
+        for run in range(2):
+            if run == 0:
+                for fn in wrappers.values():
+                    fn.launches = 0
+            out = os.path.join(DATA, f"mesh_{run}.bed")
+            _, wall, text, _ = map_once(True, out)
+            walls.append(wall)
+            if run == 0:
+                launches = {n: fn.launches for n, fn in wrappers.items()}
+                st = dict(mesh.stats)
+            if "(2-device data mesh)" not in text:
+                raise AssertionError("the mesh run did not seed through the "
+                                     "2-shard mesh:\n" + text[-3000:])
+            with open(out, "rb") as f, open(host, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"mesh run {run}: the BED differs "
+                                         "from the host-only BED")
+    finally:
+        ds.get_device_seeder = cached
+    peak = torch.cuda.max_memory_allocated(card) / 2**20
+    log(f"mesh path: {pairs} pairs through a 2-shard MeshSeeder on cuda:0, "
+        f"map wall {walls[0]:.3f}s then {walls[1]:.3f}s (the seeder built "
+        f"before), BED byte-equal to the host-only run; stats of the first "
+        f"run {json.dumps(st)}; launches {json.dumps(launches)} over "
+        f"{st['chunks']} device chunks x 2 shards; peak device memory "
+        f"{peak:.1f} MiB")
+    if st["chunks"] - st["over_chunks"] < 1 or st["unsharded_chunks"]:
+        raise AssertionError("the mesh run seeded no chunk, or left one "
+                             "unsharded")
+    for name, n in launches.items():
+        if n != 2 * st["chunks"]:
+            raise AssertionError(f"kernel {name}: {n} launches, not one per "
+                                 "shard per device chunk")
+    return {f"path_{n}": v for n, v in launches.items()}
+
+
 def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
     """Kernel time of one seeding step by kernel name (torch.profiler),
     and the device's busy share of the step's wall time."""
@@ -1269,7 +1500,8 @@ def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,path,hic,batch,flows,chunk")
+    ap.add_argument("--phases",
+                    default="kernels,path,hic,batch,flows,chunk,mesh")
     ap.add_argument("--genome-core", type=int, default=96_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
@@ -1313,7 +1545,7 @@ def main() -> int:
     # the data (simulation + the port's index build) is made by a child
     # process while this one builds and checks the kernels
     data = None
-    if {"path", "hic", "batch", "flows", "chunk"} & set(phases):
+    if {"path", "hic", "batch", "flows", "chunk", "mesh"} & set(phases):
         data = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--make-data",
              "--genome-core", str(args.genome_core),
@@ -1342,7 +1574,8 @@ def main() -> int:
                      ("hic", lambda: phase_hic(results, args.pairs)),
                      ("batch", lambda: phase_batch(results)),
                      ("flows", lambda: phase_flows(results)),
-                     ("chunk", lambda: phase_chunk(results))):
+                     ("chunk", lambda: phase_chunk(results)),
+                     ("mesh", lambda: phase_mesh(results, args.pairs))):
         if ok and name in phases:
             try:
                 fn()

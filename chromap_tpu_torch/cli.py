@@ -108,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-batch-size", type=int, default=None,
                    help="read pairs per device dispatch (default 8192)")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="0 or 1 = one device; N > 1 is not yet ported")
+                   help="devices the --device seeding shards each chunk "
+                        "over: 0 = every visible device of --torch-device "
+                        "(cuda: every card; cpu: one), 1 = one, N > 1 = "
+                        "the first N (cpu: N shards on the CPU)")
     p.add_argument("--engine", type=str, default="auto",
                    choices=["auto", "native", "batch", "per_read"],
                    help="mapping engine selection")
@@ -363,10 +366,8 @@ def parse_args_and_run(argv: Optional[List[str]] = None) -> int:
             parser.error("--device-batch-size must be positive")
         cfg.device_batch_size = args.device_batch_size
     cfg.torch_device = args.torch_device
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            f"--mesh-devices {args.mesh_devices}: multi-GPU seeding is not "
-            "yet ported to chromap_tpu_torch")
+    if args.mesh_devices < 0:
+        parser.error("--mesh-devices must be >= 0")
     cfg.mesh_devices = args.mesh_devices
     cfg.engine = args.engine
     import os as _os

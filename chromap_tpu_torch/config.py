@@ -99,12 +99,13 @@ class MappingConfig:
     device_hybrid_period: int = 3
     read_batch_size: int = 500000
     low_mem_max_records: int = 0  # 0 = derive from the reference's budgets
-    # device mesh: 0 or 1 = one device; N > 1 (multi-GPU seeding) is not
-    # yet ported and raises
+    # device mesh of the seeder, as in the JAX package: 0 = every visible
+    # device of torch_device's type (CUDA: every card; CPU: one), 1 = one
+    # device, N > 1 = the read batch sharded over N (parallel/sharding.py)
     mesh_devices: int = 0
     # multi-host sharded operation: each shard maps reads with
     # read_index %% num_shards == shard_index and emits sorted spill shards;
-    # a final merge invocation unifies them (parallel/sharding.py)
+    # a final merge invocation unifies them (parallel/shards.py)
     num_shards: int = 1
     shard_index: int = 0
     # engine: "auto" prefers native (C++ host runtime) then batch for bulk

@@ -139,9 +139,10 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call the C entry point `name` of library `name`: tensors pass as
     device pointers, ints as C ints, then the current stream of the first
-    tensor's device. Raises when the entry reports a CUDA error (a launch
-    that was refused never runs, and a later synchronize would not say
-    so)."""
+    tensor's device. The call runs with that device current, since the
+    entries query and set per-device attributes on the runtime's current
+    device. Raises when the entry reports a CUDA error (a launch that was
+    refused never runs, and a later synchronize would not say so)."""
     import torch
     lib = load(name)
     fn = getattr(lib, name)
@@ -149,8 +150,10 @@ def launch(name: str, *args) -> None:
     fn.argtypes = [ctypes.c_void_p if t else ctypes.c_int
                    for t in is_t] + [ctypes.c_void_p]
     dev = next(a for a, t in zip(args, is_t) if t).device
-    rc = fn(*[a.data_ptr() if t else int(a) for a, t in zip(args, is_t)],
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = fn(*[a.data_ptr() if t else int(a)
+                  for a, t in zip(args, is_t)],
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

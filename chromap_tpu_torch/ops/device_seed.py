@@ -36,17 +36,23 @@ re-run through the exact host path by the native finish stage; a batch
 over its flat budgets comes back as `batch_over` and maps on the host.
 That routing is part of the algorithm. A failing kernel or device is
 not routed anywhere: it raises.
+
+`DeviceSeeder` runs the step on one device; `MeshSeeder` splits each
+batch's rows over a list of devices (`--mesh-devices`), as the JAX
+package's MeshSeeder shards them over its data mesh.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import sys
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.sharding import make_data_mesh
 from . import _build
 from ._build import resolve_device
 from .dense_minimizer import dense_minimizer
@@ -775,6 +781,34 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+def check_packed_bounds(num_refs: int, max_seed_frequencies) -> None:
+    """Raise when a run lies beyond the step's packed-candidate format:
+    rids in 14 bits (fewer than 16384 reference sequences), occurrence
+    counts saturating at 12 bits (a max seed frequency of at most 4000;
+    anything >= f1 behaves identically)."""
+    if num_refs >= (1 << 14):
+        raise ValueError(
+            f"device seeding supports < 16384 reference sequences (packed "
+            f"candidate format); the reference has {num_refs}")
+    f1 = int(max_seed_frequencies[1])
+    if f1 > 4000:
+        raise ValueError(
+            f"device seeding requires max seed frequency <= 4000 (12-bit "
+            f"saturating counts); -f asks for {f1}")
+
+
+# the index/reference tensors, in the step's argument order
+INDEX_TENSORS = ("hash_keys", "offcnt", "occurrences", "ref_words",
+                 "ref_nwords", "ref_lens", "ref_offsets", "probe_table",
+                 "keys_lo")
+
+
+def _wait_download(dl_host, event) -> np.ndarray:
+    if event is not None:
+        event.synchronize()
+    return dl_host.numpy().view(np.uint32)
+
+
 class DeviceSeeder:
     """Holds the device-resident index/reference and runs the batch step
     on `device` ("cuda" launches the kernels; "cpu" runs their plain
@@ -798,14 +832,7 @@ class DeviceSeeder:
         self.f1 = int(max_seed_frequencies[1])
         self.min_num_seeds = int(min_num_seeds)
         self.num_refs = len(ref_seqs)
-        # packed-candidate format bounds: rid in 14 bits, occurrence counts
-        # saturate at 12 bits (anything >= f1 behaves identically)
-        if self.num_refs >= (1 << 14):
-            raise ValueError("device seeding supports < 16384 reference "
-                             "sequences (packed candidate format)")
-        if self.f1 > 4000:
-            raise ValueError("device seeding requires max seed frequency "
-                             "<= 4000 (12-bit saturating counts)")
+        check_packed_bounds(self.num_refs, max_seed_frequencies)
         if not 0 <= self.e <= 15:
             raise ValueError("device verification holds the band in 32 "
                              "bits: error threshold must be < 16")
@@ -845,42 +872,57 @@ class DeviceSeeder:
         """Dispatch a prepacked (B, W+WN) u32 batch (cn_pack_reads
         layout). The upload is copied before this returns (the caller's
         pack buffers are a reused ring); on CUDA the step and the
-        download are queued on the current stream and an event marks the
-        download's end. With lengths=None all reads are length L."""
-        Mtot = MZ_PER_READ * B
-        Htot = HITS_PER_READ * B
-        captot = CANDS_PER_READ * B
-        cuda = self.device.type == "cuda"
+        download are queued on the device's current stream and an event
+        marks the download's end. With lengths=None all reads are length
+        L."""
         rw_t = from_numpy_u32(np.asarray(rw).reshape(B, -1))
-        if cuda:
+        return (self._dispatch(self.device, self._index_operands(), rw_t,
+                               lengths, B, L), CANDS_PER_READ * B, L)
+
+    def _index_operands(self):
+        return tuple(getattr(self, name) for name in INDEX_TENSORS)
+
+    def _lengths(self, dev, B: int, L: int, lengths):
+        if lengths is not None:
+            return torch.as_tensor(np.asarray(lengths, dtype=np.int32),
+                                   device=dev)
+        lend = self._lengths_cache.get((dev, B, L))
+        if lend is None:
+            # a blocking upload: complete before any stream reads it
+            lend = torch.full((B,), L, dtype=I32).to(dev)
+            self._lengths_cache[(dev, B, L)] = lend
+        return lend
+
+    def _dispatch(self, dev, index_t, rw_t, lengths, B: int, L: int,
+                  stream=None):
+        """Queue the step over the B rows of `rw_t` (int32 on the CPU) on
+        `dev`, with the index/reference tensors `index_t` on that device.
+        On CUDA every copy, launch and the event run with `dev` current
+        and on `stream` (None: the device's current stream). Returns
+        (download, full, B, event); on CUDA the download is a pinned host
+        tensor that `event` marks complete."""
+        sizes = dict(L=L, B=B, Mtot=MZ_PER_READ * B, Htot=HITS_PER_READ * B,
+                     captot=CANDS_PER_READ * B)
+        if dev.type != "cuda":
+            dl, full = self._step(rw_t.clone(),
+                                  self._lengths(dev, B, L, lengths),
+                                  *index_t, **sizes)
+            return dl, full, B, None
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
             staged = torch.empty(rw_t.shape, dtype=I32, pin_memory=True)
             staged.copy_(rw_t)
-            rw_dev = staged.to(self.device, non_blocking=True)
-        else:
-            rw_dev = rw_t.clone()
-        if lengths is None:
-            lend = self._lengths_cache.get((B, L))
-            if lend is None:
-                lend = torch.full((B,), L, dtype=I32, device=self.device)
-                self._lengths_cache[(B, L)] = lend
-        else:
-            lend = torch.as_tensor(np.asarray(lengths, dtype=np.int32),
-                                   device=self.device)
-        dl, full = self._step(rw_dev, lend, self.hash_keys, self.offcnt,
-                              self.occurrences, self.ref_words,
-                              self.ref_nwords, self.ref_lens,
-                              self.ref_offsets, self.probe_table,
-                              self.keys_lo,
-                              L=L, B=B, Mtot=Mtot, Htot=Htot, captot=captot)
-        event = None
-        if cuda:
+            dl, full = self._step(staged.to(dev, non_blocking=True),
+                                  self._lengths(dev, B, L, lengths),
+                                  *index_t, **sizes)
             dl_host = torch.empty(dl.shape, dtype=I32, pin_memory=True)
             dl_host.copy_(dl, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        else:
-            dl_host = dl
-        return ((dl_host, full, B, event), captot, L)
+        return dl_host, full, B, event
+
+    def download_bytes(self, handle) -> int:
+        """Bytes of a submitted batch's download."""
+        return handle[0][0].nbytes
 
     def resolve(self, handle
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
@@ -892,25 +934,28 @@ class DeviceSeeder:
         finish. Safe to call from another thread than the one that
         submitted."""
         (dl_host, full, B, event), captot, L = handle
-        if event is not None:
-            event.synchronize()
-        dl_np = dl_host.numpy().view(np.uint32)
-        total = int(dl_np[0])
+        dl_np = _wait_download(dl_host, event)
         self.stats["chunks"] += 1
         if dl_np[1]:
             # flat budget exceeded: caller maps this batch on the host
             self.stats["over_chunks"] += 1
             return None, None, None, True
-        meta32 = dl_np[2:2 + B]
-        self.stats["rows"] += B
+        return self._unpack(dl_np[2:2 + B],
+                            self._candidates(dl_np, full, B, captot), L)
+
+    def _candidates(self, dl_np, full, B: int, captot: int) -> np.ndarray:
+        """One step's candidate words as u64: from its download when the
+        total fits the download cap, else from its `full` stream."""
+        total = int(dl_np[0])
+        upc = 4 if self.split else 2  # u32s per candidate
+        if total <= (captot * DL_CANDS_PER_READ) // CANDS_PER_READ:
+            return dl_np[2 + B:2 + B + upc * total].view(np.uint64)
+        return full[:upc * total].cpu().numpy().view(np.uint64)
+
+    def _unpack(self, meta32, cand64, L: int):
+        self.stats["rows"] += len(meta32)
         self.stats["fallback_rows"] += int(
             np.count_nonzero((meta32 >> 17) & FLAG_FALLBACK))
-        dlcap = (captot * DL_CANDS_PER_READ) // CANDS_PER_READ
-        upc = 4 if self.split else 2  # u32s per candidate
-        if total <= dlcap:
-            cand64 = dl_np[2 + B:2 + B + upc * total].view(np.uint64)
-        else:
-            cand64 = full[:upc * total].cpu().numpy().view(np.uint64)
         if self.split:
             # interleaved (cand, split-ext) u64 pairs
             meta_np, pos_np, cmeta_np = unpack_download(
@@ -926,6 +971,99 @@ class DeviceSeeder:
         return self.resolve(self.submit(codes, lengths))
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """`dev` with its index spelt out ("cuda" is the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class MeshSeeder(DeviceSeeder):
+    """The seeder over a data mesh, the counterpart of the JAX
+    MeshSeeder: each chunk's rows split into n contiguous ranges of
+    B // n, one per entry of `devices`, and each range runs the step at
+    its own size and flat budgets on its device, under its own stream,
+    into its own download. `resolve` joins the ranges in order, which
+    restores the chunk's read order; one range over its budget sends the
+    whole chunk to the host. The index and reference tensors are held
+    once per distinct device, so entries that name the same device share
+    them: several entries of one card rehearse a mesh there, as JAX's
+    virtual CPU devices do. One process drives every device; the
+    per-range totals are read on the host."""
+
+    def __init__(self, index, ref_seqs, error_threshold: int,
+                 min_num_seeds: int, max_seed_frequencies, devices,
+                 split: bool = False):
+        devices = [_indexed(resolve_device(d)) for d in devices]
+        if not devices:
+            raise ValueError("MeshSeeder needs at least one device")
+        super().__init__(index, ref_seqs, error_threshold, min_num_seeds,
+                         max_seed_frequencies, device=devices[0],
+                         split=split)
+        self.devices = devices
+        self.n_dev = len(devices)
+        first = self._index_operands()
+        self._replicas = {self.device: first}
+        for dev in devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = tuple(
+                    None if t is None else t.to(dev) for t in first)
+        self._streams = [torch.cuda.Stream(dev) if dev.type == "cuda"
+                         else None for dev in devices]
+        for dev in self._replicas:
+            if dev.type == "cuda":
+                # the replicas are whole before another stream reads them
+                torch.cuda.synchronize(dev)
+        # chunks whose rows did not split over the shards
+        self.stats["unsharded_chunks"] = 0
+
+    def submit_packed(self, rw: np.ndarray, B: int, L: int,
+                      lengths: np.ndarray | None = None):
+        """Dispatch every shard of the batch before waiting on any. A
+        batch whose rows do not split evenly runs the single-device step
+        on the first device, as in the JAX package."""
+        n = self.n_dev
+        if B % n:
+            self.stats["unsharded_chunks"] += 1
+            if self.stats["unsharded_chunks"] == 1:
+                print(f"MeshSeeder: a chunk of {B} rows does not split "
+                      f"over {n} shards; such chunks run the single-device "
+                      f"step on {self.device} (the pipeline's default chunk "
+                      "of 32768 rows never splits over 3)", file=sys.stderr)
+            return super().submit_packed(rw, B, L, lengths=lengths)
+        Bs = B // n
+        rw_t = from_numpy_u32(np.asarray(rw).reshape(B, -1))
+        shards = []
+        for i, (dev, stream) in enumerate(zip(self.devices, self._streams)):
+            rows = slice(i * Bs, (i + 1) * Bs)
+            shards.append(self._dispatch(
+                dev, self._replicas[dev], rw_t[rows],
+                None if lengths is None else np.asarray(lengths)[rows],
+                Bs, L, stream))
+        return shards, CANDS_PER_READ * Bs, L
+
+    def download_bytes(self, handle) -> int:
+        if not isinstance(handle[0], list):
+            return super().download_bytes(handle)
+        return sum(shard[0].nbytes for shard in handle[0])
+
+    def resolve(self, handle):
+        shards, captot_s, L = handle
+        if not isinstance(shards, list):
+            return super().resolve(handle)
+        dls = [_wait_download(dl, event) for dl, _, _, event in shards]
+        self.stats["chunks"] += 1
+        if any(dl[1] for dl in dls):
+            self.stats["over_chunks"] += 1
+            return None, None, None, True
+        meta32 = np.concatenate([dl[2:2 + Bs]
+                                 for dl, (_, _, Bs, _) in zip(dls, shards)])
+        cand64 = np.concatenate([
+            self._candidates(dl, full, Bs, captot_s)
+            for dl, (_, full, Bs, _) in zip(dls, shards)])
+        return self._unpack(meta32, cand64, L)
+
+
 _seeder_cache: dict = {}
 
 
@@ -933,24 +1071,26 @@ def get_device_seeder(index, ref_seqs, error_threshold: int,
                       min_num_seeds: int, max_seed_frequencies,
                       cache_key=None, mesh_devices: int = 0,
                       split: bool = False, device="cuda") -> DeviceSeeder:
-    """Process-wide DeviceSeeder cache. `cache_key` identifies the
+    """Process-wide seeder cache. `cache_key` identifies the
     index/reference content (e.g. (index_path, mtime, ref_path, mtime));
-    None disables caching. The port seeds on one device: mesh_devices 0
-    or 1 select it, N > 1 raises until the multi-GPU seeder is ported."""
-    if mesh_devices > 1:
-        raise NotImplementedError(
-            f"--mesh-devices {mesh_devices}: multi-GPU seeding is not yet "
-            "ported to chromap_tpu_torch")
+    None disables caching. mesh_devices, as in the JAX package: 0 = all
+    visible devices of `device`'s type (every card on CUDA, one on the
+    CPU), 1 = one device, N > 1 = a MeshSeeder over make_data_mesh(N)."""
+    n = mesh_devices or len(make_data_mesh(None, device))
 
     def build():
+        if n > 1:
+            return MeshSeeder(index, ref_seqs, error_threshold,
+                              min_num_seeds, max_seed_frequencies,
+                              make_data_mesh(n, device), split=split)
         return DeviceSeeder(index, ref_seqs, error_threshold, min_num_seeds,
                             max_seed_frequencies, device=device, split=split)
 
     if cache_key is None:
         return build()
     key = (cache_key, int(error_threshold), int(min_num_seeds),
-           tuple(int(f) for f in max_seed_frequencies), split, str(device),
-           os.environ.get("CHROMAP_TPU_PROBE"))
+           tuple(int(f) for f in max_seed_frequencies), n, split,
+           str(device), os.environ.get("CHROMAP_TPU_PROBE"))
     seeder = _seeder_cache.get(key)
     if seeder is None:
         seeder = build()

@@ -123,10 +123,14 @@ class MappingPipeline:
         self._device_seeder = None
         self.batch_mapper = None  # the batch engine of the last paired run
         if cfg.use_device:
-            # fail before any mapping when the asked-for device is absent,
-            # even if no chunk would have reached it
+            # fail before any mapping when the asked-for device, or the
+            # asked-for number of them, is absent, even if no chunk would
+            # have reached it
             from .ops.device_seed import resolve_device
+            from .parallel.sharding import make_data_mesh
             resolve_device(cfg.torch_device)
+            if cfg.mesh_devices > 1:
+                make_data_mesh(cfg.mesh_devices, cfg.torch_device)
         if getattr(cfg, "device_batch_size", 0) > 16384:
             # the device program's hit-sort key carries 15 row bits
             # (2 reads/pair), so one dispatch holds <= 16384 pairs
@@ -158,6 +162,13 @@ class MappingPipeline:
         self.ref_lengths = [r.length for r in self.reference]
         log(f"Loaded all sequences in {time.time() - t0:.2f}s, "
             f"number of sequences: {len(self.reference)}.")
+        if (cfg.use_device and cfg.error_threshold < 16
+                and (cfg.native_engine_eligible(paired=True)
+                     or cfg.native_engine_eligible(paired=False))):
+            # a run whose chunks may reach the seeder fails here, before
+            # any output, when it lies beyond the packed-candidate format
+            from .ops.device_seed import check_packed_bounds
+            check_packed_bounds(len(self.reference), cfg.max_seed_frequencies)
 
         self.pairs_custom_rid_rank: Optional[List[int]] = None
         if cfg.output_format == "pairs":
@@ -1057,7 +1068,10 @@ class MappingPipeline:
                 split=cfg.split_alignment, device=cfg.torch_device)
             kind = ("CUDA" if self._device_seeder.device.type == "cuda"
                     else "CPU (plain torch)")
-            log(f"Using {kind} device seeding + verification.")
+            n_dev = getattr(self._device_seeder, "n_dev", 1)
+            mesh_note = (f" ({n_dev}-device data mesh)" if n_dev > 1
+                         else "")
+            log(f"Using {kind} device seeding + verification{mesh_note}.")
         return self._device_seeder or None
 
     def _hybrid_state(self) -> dict:
@@ -1234,8 +1248,7 @@ class MappingPipeline:
             r = seeder.resolve(handle)
             if prof is not None:
                 prof["resolve_s"] += time.time() - t0
-                dl = handle[0][0]
-                prof["dl_bytes"] += dl.numel() * dl.element_size()
+                prof["dl_bytes"] += seeder.download_bytes(handle)
             return r, time.time()
 
         t_sub = time.time()

@@ -393,3 +393,65 @@ def test_split_seeder_card_equals_cpu(card, small_world, e):
         np.testing.assert_array_equal(x, y)
     rml0 = (a[2][1] >> np.uint64(17)) & np.uint64(0xFF)
     assert (rml0 < L).any()
+
+
+def _flat(res):
+    meta, pos, cmeta, over = res
+    return [meta, pos] + (list(cmeta) if isinstance(cmeta, tuple)
+                          else [cmeta]) + [over]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["bed", "split"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_seeder_card_equals_cpu(card, small_world, monkeypatch, n,
+                                     split):
+    """n shards of one card, each on its own stream: every shard's
+    download equals the CPU mesh's, the resolved chunk equals the card's
+    single seeder's, kernel A launches once per shard, and with no
+    candidate in the capped downloads each shard's `full` stream (written
+    on its own stream) gives the same chunk."""
+    index, ref_codes, ref_seqs = small_world
+    e = 4 if split else 8
+    B, L = 4096, 100
+    reads = _reads(ref_codes, np.random.default_rng(n), B, L)
+    rw = ds._pack_reads(reads)
+    args = (index, ref_seqs, e, MIN_SEEDS, F)
+    mesh = ds.MeshSeeder(*args, [card] * n, split=split)
+    assert len(mesh._replicas) == 1 and len(set(mesh._streams)) == n
+    before = dm.dense_minimizer.launches
+    handle = mesh.submit_packed(rw, B, L)
+    got = _flat(mesh.resolve(handle))
+    assert dm.dense_minimizer.launches - before == n
+    cpu = ds.MeshSeeder(*args, ["cpu"] * n, split=split)
+    chandle = cpu.submit_packed(rw, B, L)
+    for (dl, full, _, _), (cdl, cfull, _, _) in zip(handle[0], chandle[0]):
+        assert dl.numpy().tobytes() == cdl.numpy().tobytes()
+        assert full.cpu().numpy().tobytes() == cfull.numpy().tobytes()
+    single = ds.DeviceSeeder(*args, device=card, split=split)
+    want = _flat(single.resolve(single.submit_packed(rw, B, L)))
+    assert got[-1] is False and want[-1] is False
+    for a, b in zip(got[:-1], want[:-1]):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(ds, "DL_CANDS_PER_READ", 0)
+    again = _flat(mesh.resolve(mesh.submit_packed(rw, B, L)))
+    for a, b in zip(again[:-1], want[:-1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_myers_on_card(card):
+    """sharded_myers over two shards of the card equals kernel B's plain
+    version on the whole batch, with one launch per shard."""
+    from chromap_tpu_torch.parallel.sharding import sharded_myers
+    rng = np.random.default_rng(3)
+    n, L, e = 4098, 100, 8
+    pats = rng.integers(0, 4, (L + 2 * e, n)).astype(np.int32)
+    txts = pats[e:e + L].copy()
+    txts[:, ::3] = rng.integers(0, 4, (L, len(txts[0, ::3])))
+    before = my.myers.launches
+    errors, ends, accepted = sharded_myers([card] * 2, pats, txts, e, L)
+    assert my.myers.launches - before == 2
+    want = my.myers_plain(torch.from_numpy(pats), torch.from_numpy(txts), e,
+                          L)
+    np.testing.assert_array_equal(errors, want[0].numpy())
+    np.testing.assert_array_equal(ends, want[1].numpy())
+    assert accepted == int((want[0] <= e).sum()) and 0 < accepted < n

@@ -7,9 +7,10 @@ output, low-memory mode) goes through the split seeder the same way and
 must byte-match its goldens, plain, with `--chr-order` /
 `--pairs-natural-chr-order`, and barcoded. Also pinned: thread-count
 invariance, that a device failure raises instead of mapping on the host,
-that CUDA without a card raises, and that the package neither imports
-nor needs JAX or the JAX package (on the device path and through the
-batch engine)."""
+that CUDA without a card raises, that `--mesh-devices 0` is one device
+on the CPU, that runs beyond the step's packed-candidate format fail
+before any output, and that the package neither imports nor needs JAX or
+the JAX package (on the device path and through the batch engine)."""
 
 import ast
 import os
@@ -17,6 +18,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,9 +69,9 @@ def mc_data(tmp_path_factory):
     return d
 
 
-def _map(d, out, extra):
+def _map(d, out, extra, ref=None, index=None):
     args = [sys.executable, "-m", "chromap_tpu_torch.cli",
-            "-x", f"{d}/index", "-r", f"{d}/ref.fa",
+            "-x", str(index or f"{d}/index"), "-r", str(ref or f"{d}/ref.fa"),
             "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-o", str(out)] + extra
     return subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
                           env=ENV)
@@ -160,11 +162,45 @@ def test_cuda_without_card_raises(sim_data, tmp_path):
     assert not out.exists() or out.stat().st_size == 0
 
 
-def test_mesh_devices_not_ported(sim_data, tmp_path):
-    res = _map(sim_data, tmp_path / "mesh.bed",
-               DEVICE_ARGS + ["--mesh-devices", "2"])
+def test_mesh_devices_zero_is_every_cpu_device(sim_data, golden_dir,
+                                               tmp_path):
+    """--mesh-devices 0 means every visible device of the type, as in the
+    JAX package; on the CPU that is one, so no mesh is built."""
+    out = tmp_path / "mesh0.bed"
+    res = _map(sim_data, out, DEVICE_ARGS + ["--mesh-devices", "0"])
+    assert res.returncode == 0, res.stderr
+    assert "Using CPU (plain torch) device seeding + verification." \
+        in res.stderr
+    assert "data mesh" not in res.stderr
+    assert out.read_bytes() == (golden_dir / "sim_default.bed").read_bytes()
+
+
+@pytest.mark.parametrize("many_refs,bound", [
+    (False, "max seed frequency <= 4000"),
+    (True, "< 16384 reference sequences")],
+    ids=["max-seed-frequency", "reference-sequences"])
+def test_device_bounds_fail_before_mapping(many_refs, bound, sim_data,
+                                           tmp_path):
+    """A --device run beyond the step's packed-candidate format -- -f
+    500,5000, or a reference of 16,384 sequences (rids need 15 bits) --
+    fails when the reference is loaded, before any output."""
+    d = sim_data
+    ref, index, extra = f"{d}/ref.fa", f"{d}/index", ["-f", "500,5000"]
+    if many_refs:
+        ref, index, extra = tmp_path / "many.fa", tmp_path / "many.idx", []
+        rng = np.random.default_rng(1)
+        ref.write_text("".join(
+            f">s{i}\n{''.join('ACGT'[c] for c in row)}\n"
+            for i, row in enumerate(rng.integers(0, 4, (1 << 14, 24)))))
+        subprocess.run([sys.executable, "-m", "chromap_tpu_torch.cli", "-i",
+                        "-r", str(ref), "-o", str(index)], check=True,
+                       capture_output=True, cwd=ROOT, env=ENV)
+    out = tmp_path / "bound.bed"
+    res = _map(d, out, extra + DEVICE_ARGS, ref=ref, index=index)
     assert res.returncode != 0
-    assert "not yet ported" in res.stderr
+    assert bound in res.stderr, res.stderr
+    assert "Mapped" not in res.stderr
+    assert not out.exists() or out.stat().st_size == 0
 
 
 def test_port_runs_without_jax(sim_data, golden_dir, tmp_path):

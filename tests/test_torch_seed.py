@@ -401,6 +401,6 @@ def test_seeder_refuses_cuda_without_card(small_world):
     index, _, ref_seqs = small_world
     with pytest.raises(RuntimeError, match="CUDA"):
         tds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F, device="cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA"):
         tds.get_device_seeder(index, ref_seqs, E, MIN_SEEDS, F,
-                              mesh_devices=2, device="cpu")
+                              mesh_devices=2, device="cuda")
