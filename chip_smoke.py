@@ -74,6 +74,22 @@ Phases, in order (any failure exits non-zero before the last line):
            100k BED pairs through MappingPipeline with a 2-shard
            MeshSeeder, byte-equal to the host-only BED with every chunk
            sharded and each kernel launched once per shard per chunk.
+  tools    the port's bench and measurement tools, each run as `python -m
+           chromap_tpu_torch.<module>` in a subprocess from the repository
+           root on the card (any nonzero exit fails the phase), every line
+           they print relayed with a `tools <name>|` prefix: the bench at
+           its defaults (data under _smoke/bench/) and on the path's 141 Mb
+           set, whose scored value must be the card's rate with
+           byte-equal BED files; stage_profile on the path's set in BED
+           mode and in split mode on the Hi-C reads, each stop's
+           hand-written kernel launches checked against its stages, the
+           full step's kernel time within 10% of the chunk phase's
+           profile and the probe stop within 20% of the probe alone;
+           full_time with the probe and cluster stops on the bench's set;
+           primitives at the 141 Mb index's key count; bench_parity on
+           the bench's 100k pairs (byte-equal BED files); weak_scaling at
+           1, 2 and 4 shards of the card on the 141 Mb set, one launch of
+           A, B and C per shard per call.
 
 It prints the card (nvidia-smi name and power limit) first and again
 before the JSON line of per-kernel numbers, and as its last line
@@ -97,14 +113,6 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "_smoke")
 
-# H100 SXM data sheet: 3.35 TB/s HBM3; 67 T/s is the float32 rate outside
-# the tensor cores, used for the 32-bit integer instructions these kernels
-# issue. The true integer issue rate is lower (64 INT32 lanes per SM and
-# clock against 128 FP32: ~16.7 T/s at 1.98 GHz), so the bound stays a
-# lower bound on time, and a kernel of integer work can sit well above it.
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-
 REPLACES = {
     "dense_minimizer": "chromap_tpu/ops/pallas_dense.py:157",
     "myers": "chromap_tpu/ops/pallas_myers.py:39",
@@ -121,28 +129,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_cuda(fn, reps: int = 10, warmup: int = 2, between=None) -> float:
-    """Median milliseconds of one call of fn, by CUDA events. A spin
-    kernel holds the stream while the host enqueues every timed call, so
-    the events see device time and not the host's launch overhead.
-    `between()`, if given, runs before each call, outside the events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(2_000_000_000)           # about a second of cycles
-    for a, b in events:
-        if between is not None:
-            between()
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
 def max_abs_err(got, want) -> int:
     import torch
     err = 0
@@ -152,12 +138,6 @@ def max_abs_err(got, want) -> int:
         d = (g.to(torch.int64) - w.to(torch.int64)).abs()
         err = max(err, int(d.max().item()) if d.numel() else 0)
     return err
-
-
-def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------
@@ -215,14 +195,6 @@ def kernel_inputs_myers(rng, L: int, N: int, e: int):
     texts[far] = rng.integers(0, 4, (int(far.sum()), L))
     return (torch.from_numpy(np.ascontiguousarray(pats.T)).cuda(),
             torch.from_numpy(np.ascontiguousarray(texts.T)).cuda())
-
-
-def myers_cost(L: int, N: int, e: int):
-    nbytes = 4 * ((L + 2 * e) * N + L * N) + 4 * 2 * N
-    # per row: Peq update (10), text select (5), the Myers step (~12),
-    # shifts (5); the 2e-cell band scan ~8 each; the 2e init rows ~10
-    ops = N * (L * 32 + 2 * e * 8 + 2 * e * 10)
-    return nbytes, ops
 
 
 def kernel_inputs_dropoff(rng, L: int, N: int, e: int):
@@ -310,12 +282,13 @@ def check_kernel(label: str, wrapper, kernel, plain, cost, note) -> dict:
     the launch count; `cost` is (bytes, ops); `note(outputs)` adds a
     word about the data."""
     import torch
+    from chromap_tpu_torch.bench import bound, time_ms
     n0 = wrapper.launches
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     equal = all(torch.equal(g, x) for g, x in zip(got, want))
     err = max_abs_err(got, want)
-    ms, plain_ms = time_cuda(kernel), time_cuda(plain)
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
     bms, by = bound(*cost)
     log(f"{label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"launches={wrapper.launches - n0} equal={equal} max_abs_err={err} "
@@ -332,11 +305,12 @@ def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
     """Log what bounds a kernel: achieved GB/s warm and cold (`flush` is
     overwritten before each cold launch), and the resident blocks per SM
     from its C entry's occupancy query."""
+    from chromap_tpu_torch.bench import bound, time_ms
     from chromap_tpu_torch.ops import _build
     blocks, threads, smem, tile = _build.occupancy(name, L)
     unit = "reads a tile" if name == "dense_minimizer" else "ring stages"
-    cold_ms = time_cuda(fn, between=flush.zero_)
-    t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+    cold_ms = time_ms(fn, between=flush.zero_)
+    t_bytes = bound(r["nbytes"])[0]
     gbs = [r["nbytes"] / (t * 1e-3) / 1e9 for t in (r["ms"], cold_ms)]
     log(f"{label}: {gbs[0]:.0f} GB/s warm, {gbs[1]:.0f} GB/s cold "
         f"(cold_ms={cold_ms:.4f}, a {flush.numel() >> 20} MiB write "
@@ -349,6 +323,7 @@ def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
 def phase_kernels(results: dict) -> None:
     import numpy as np
     import torch
+    from chromap_tpu_torch.bench import myers_cost
     from chromap_tpu_torch.ops import dense_minimizer as dm
     from chromap_tpu_torch.ops import device_seed as ds
     from chromap_tpu_torch.ops import myers as my
@@ -678,10 +653,9 @@ def phase_path(results: dict, genome_core: int, pairs: int) -> None:
 
 def phase_hic(results: dict, pairs: int) -> None:
     import torch
-    from chromap_tpu_torch.ops import dense_minimizer as dm
     from chromap_tpu_torch.ops import device_seed as ds
-    from chromap_tpu_torch.ops import myers as my
     from chromap_tpu_torch.pipeline import MappingPipeline
+    from chromap_tpu_torch.tools.stage_profile import kernel_wrappers
 
     # runs in turns: host, device (the Hi-C path's run: launch counts
     # from 0 just before, read just after; it builds the split seeder),
@@ -715,9 +689,7 @@ def phase_hic(results: dict, pairs: int) -> None:
 
     run("host", False)
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"dense_minimizer": dm.dense_minimizer, "myers": my.myers,
-                "cluster_scan": ds.cluster_scan,
-                "myers_dropoff": my.myers_dropoff}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     run("device", True)
@@ -792,6 +764,7 @@ def phase_batch(results: dict) -> None:
     import numpy as np
     import torch
     from chromap_tpu_torch.batch import verify as bv
+    from chromap_tpu_torch.bench import myers_cost
     from chromap_tpu_torch.ops import myers as my
 
     # runs in turns, all -l 2000 with the cache off: host --engine batch,
@@ -1109,21 +1082,10 @@ def phase_flows(results: dict) -> None:
 # ---------------------------------------------------------------------
 
 def read_chunk(pairs: int, reads: str = "r"):
-    import numpy as np
-    tbl = np.full(256, 4, np.uint8)
-    for i, c in enumerate(b"ACGT"):
-        tbl[c] = i
-    rows = []
-    with open(os.path.join(DATA, f"{reads}1.fq"), "rb") as f1, \
-            open(os.path.join(DATA, f"{reads}2.fq"), "rb") as f2:
-        for _ in range(pairs):
-            for f in (f1, f2):
-                f.readline()
-                rows.append(tbl[np.frombuffer(f.readline().rstrip(),
-                                              np.uint8)])
-                f.readline()
-                f.readline()
-    return np.stack(rows)
+    """(2 * pairs, L) u8 codes of the first pairs of `<reads>1/2.fq`,
+    read 1 then read 2 of each pair (tools/stage_profile.py's reader)."""
+    from chromap_tpu_torch.tools.stage_profile import read_chunk as rc
+    return rc(DATA, 2 * pairs, reads)[0]
 
 
 def phase_chunk(results: dict) -> None:
@@ -1135,15 +1097,16 @@ def phase_chunk(results: dict) -> None:
                 load_all_sequences(os.path.join(DATA, "ref.fa"))]
     # the BED path's chunk (e = 8), then the Hi-C path's in split mode
     # (e = 4, drop-off verification with the 5'-gap retry)
-    chunk_once("chunk", index, ref_seqs, "r", 8, False)
+    results["chunk"] = chunk_once("chunk", index, ref_seqs, "r", 8, False)
     chunk_once("chunk hic", index, ref_seqs, "hic_r", 4, True)
 
 
 def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
-               split: bool) -> None:
+               split: bool) -> dict:
     """One 16384-pair chunk through the merge-sort step, the bucketed step
     (CHROMAP_TPU_PROBE=bucket) and the searchsorted step (=sortss), each
-    on CUDA and on the CPU: all six downloads must be byte-equal."""
+    on CUDA and on the CPU: all six downloads must be byte-equal. Returns
+    each probe's kernel ms under the profiler, and the probes alone."""
     import numpy as np
     import torch
     from chromap_tpu_torch.ops import device_seed as ds
@@ -1151,7 +1114,7 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     codes = read_chunk(16384, reads)
     B, L = codes.shape
     rw = ds._pack_reads(codes)
-    outs, steps = {}, {}
+    outs, steps, kept = {}, {}, {}
     for probe, mode in (("merge-sort", None), ("bucketed", "bucket"),
                         ("searchsorted", "sortss")):
         if mode is not None:
@@ -1191,9 +1154,10 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                 log(f"{label} {probe}: CUDA step (submit+resolve) "
                     f"{1e3 * step_s:.2f} ms median of 5 ({B} rows, L={L}, "
                     f"e={e}, split={split}); first call {1e3 * dt:.1f} ms")
-                profile_step(seeder, rw, B, L, f"{label} {probe}")
+                kept[probe] = profile_step(seeder, rw, B, L,
+                                           f"{label} {probe}")
                 if probe == "bucketed" and not split:
-                    time_probes(seeder, label)
+                    kept["probe_alone_ms"] = time_probes(seeder, label)
                 del seeder
                 torch.cuda.empty_cache()
         finally:
@@ -1220,9 +1184,10 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
             f"({100 * share:.2f}%)")
         if share <= 0:
             raise AssertionError(f"{label}: no drop-off lane stopped early")
+    return kept
 
 
-def time_probes(seeder, label: str) -> None:
+def time_probes(seeder, label: str) -> dict:
     """The index probe alone, by CUDA events, on the seeder's index at a
     chunk's query count (26 per read, as in the step): the merged sort,
     the bucketed search and searchsorted, on seeded queries of which
@@ -1230,6 +1195,7 @@ def time_probes(seeder, label: str) -> None:
     agree on every valid query."""
     import numpy as np
     import torch
+    from chromap_tpu_torch.bench import time_ms
     from chromap_tpu_torch.ops import device_seed as ds
     from chromap_tpu_torch.ops.u64 import UMAX64, searchsorted_u64
 
@@ -1265,7 +1231,7 @@ def time_probes(seeder, label: str) -> None:
                                 torch.where(valid, got["merge-sort"][0]
                                             .to(torch.int64), 0))
                 for v in got.values())
-    ms = {n: time_cuda(f) for n, f in (("merge-sort", merge),
+    ms = {n: time_ms(f) for n, f in (("merge-sort", merge),
                                        ("bucketed", bucket),
                                        ("searchsorted", sortss))}
     log(f"{label}: the probe alone over {M} queries and {nk} keys (CUDA "
@@ -1275,6 +1241,7 @@ def time_probes(seeder, label: str) -> None:
         f"every valid query: {agree}")
     if not agree:
         raise AssertionError(f"{label}: the probes disagree")
+    return ms
 
 
 # ---------------------------------------------------------------------
@@ -1408,9 +1375,9 @@ def mesh_path(index, ref_seqs, pairs: int) -> dict:
     host-only BED, every chunk sharded, each kernel launched once per
     shard per device chunk. Returns the launches of the first run."""
     import torch
-    from chromap_tpu_torch.ops import dense_minimizer as dm
     from chromap_tpu_torch.ops import device_seed as ds
-    from chromap_tpu_torch.ops import myers as my
+    from chromap_tpu_torch.tools.stage_profile import (expected_launches,
+                                                       kernel_wrappers)
 
     host = os.path.join(DATA, "host.bed")
     if not os.path.exists(host):
@@ -1418,8 +1385,7 @@ def mesh_path(index, ref_seqs, pairs: int) -> dict:
     card = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(card)
     mesh = ds.MeshSeeder(index, ref_seqs, 8, 2, (500, 1000), [card] * 2)
-    wrappers = {"dense_minimizer": dm.dense_minimizer, "myers": my.myers,
-                "cluster_scan": ds.cluster_scan}
+    wrappers = kernel_wrappers()
     cached = ds.get_device_seeder
     ds.get_device_seeder = lambda *a, **kw: mesh
     walls, launches, st = [], None, None
@@ -1453,34 +1419,27 @@ def mesh_path(index, ref_seqs, pairs: int) -> dict:
     if st["chunks"] - st["over_chunks"] < 1 or st["unsharded_chunks"]:
         raise AssertionError("the mesh run seeded no chunk, or left one "
                              "unsharded")
+    shard = expected_launches(None, False)
     for name, n in launches.items():
-        if n != 2 * st["chunks"]:
+        if n != 2 * st["chunks"] * shard[name]:
             raise AssertionError(f"kernel {name}: {n} launches, not one per "
                                  "shard per device chunk")
     return {f"path_{n}": v for n, v in launches.items()}
 
 
-def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
-    """Kernel time of one seeding step by kernel name (torch.profiler),
-    and the device's busy share of the step's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def profile_step(seeder, rw, B: int, L: int, label: str = "chunk"):
+    """Kernel time of one seeding step by kernel name (torch.profiler,
+    through tools/stage_profile.py `kernel_events`), and the device's
+    busy share of the step's wall time. Returns the kernel ms."""
+    from chromap_tpu_torch.tools.stage_profile import kernel_events
+    walls = []
+
+    def step():
         t0 = time.time()
         seeder.resolve(seeder.submit_packed(rw, B, L))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0)
-    rows = [(ev.self_device_time_total, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    if not rows:
-        log(f"{label} profile: no device time recorded")
-        return
-    rows.sort(reverse=True)
+        walls.append(1e3 * (time.time() - t0))
+    rows = kernel_events(step)
+    wall_ms = walls[0]
     tot = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
     log(f"{label} profile: {tot:.3f} ms of kernels in {launches}"
@@ -1494,6 +1453,117 @@ def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
         if i < 14 or any(k in key for k in own):
             log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / tot:5.1f}%  "
                 f"x{n:<4d} {key[:100]}")
+    return tot
+
+
+# ---------------------------------------------------------------------
+# phase: tools
+# ---------------------------------------------------------------------
+
+def run_tool(label: str, module: str, *args, timeout: int = 300) -> list:
+    """`python -m chromap_tpu_torch.<module> args` from the repository
+    root. Logs every line it prints (prefixed), raises on a nonzero exit,
+    and returns its JSON lines."""
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", f"chromap_tpu_torch.{module}"]
+        + [str(a) for a in args], cwd=ROOT, capture_output=True, text=True,
+        timeout=timeout)
+    for line in res.stdout.splitlines():
+        log(f"tools {label}| {line}")
+    log(f"tools {label}: rc {res.returncode} in {time.time() - t0:.1f}s")
+    if res.returncode != 0:
+        raise AssertionError(f"tools {label} failed (rc {res.returncode}):\n"
+                             + res.stderr[-3000:])
+    return [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def check_stops(label: str, rows, split: bool) -> None:
+    """Each stop launched the hand-written kernels its stages hold
+    (tools/stage_profile.py `expected_launches`) and saw device time."""
+    from chromap_tpu_torch.ops.device_seed import STAGES
+    from chromap_tpu_torch.tools.stage_profile import expected_launches
+    for row, stop in zip(rows, STAGES):
+        want = expected_launches(stop, split)
+        if row["own"] != want or not row["kernel_ms"]:
+            raise AssertionError(f"tools {label} stop {row['stop']}: "
+                                 f"launches {row['own']}, wanted {want}")
+
+
+def check_bench(label: str, line: dict) -> None:
+    extra = line["extra"]
+    if (line["value"] != extra.get("device_reads_per_s")
+            or line["device"]["torch_device"] != "cuda"
+            or not extra.get("bed_byte_equal")):
+        raise AssertionError(f"tools {label}: the scored value is not the "
+                             "card's rate, or the BED files differ")
+
+
+def phase_tools(results: dict, genome_core: int, pairs: int) -> None:
+    """The port's bench and tools as a user runs them, each a subprocess
+    on the card: the bench at its defaults (1.5 Mb genome core, 100k
+    pairs, the small set its first 20k) and on the path's 141 Mb set,
+    the stage profile on the 141 Mb set in BED and split mode (Hi-C
+    reads), the full step with the probe and cluster stops on the
+    bench's set, the library ops at the 141 Mb index's NK, bench_parity
+    on the bench's set and weak scaling at 1, 2 and 4 shards of the card
+    on the 141 Mb set. The bench's data lives under _smoke/bench. The
+    stage profile's full step must agree with the chunk phase's profile
+    of the same step within 10%, and its probe stop with the probe alone
+    within 20%, when the chunk phase ran."""
+    from chromap_tpu_torch.tools.stage_profile import expected_launches
+    bench_dir = os.path.join(DATA, "bench")
+    check_bench("bench", run_tool("bench", "bench", "--cache",
+                                  bench_dir)[-1])
+    # best of 2: each run here also loads the 141 Mb index
+    check_bench("bench 141 Mb", run_tool(
+        "bench 141 Mb", "bench", "--cache", DATA, "--genome-core",
+        genome_core, "--pairs", pairs, "--runs", 2)[-1])
+    stages = {}
+    for label, split in (("stage_profile BED", False),
+                         ("stage_profile split", True)):
+        rows = run_tool(label, "tools.stage_profile", "--cache", DATA,
+                        *(["--split", "--reads", "hic_r"] if split else []))
+        check_stops(label, rows[1:], split)
+        stages[label] = rows[1:]
+    run_tool("full_time", "tools.full_time", "--cache", bench_dir,
+             "--stops", "probe,cluster")
+    chunk = results.get("chunk", {})
+    probe, whole = (next(r for r in stages["stage_profile BED"]
+                         if r["stop"] == name) for name in ("probe", "FULL"))
+    if chunk.get("merge-sort"):
+        k, want = whole["kernel_ms"], chunk["merge-sort"]
+        log(f"tools cross-check: stage_profile's full step {k:.3f} ms of "
+            f"kernels against the chunk phase's profile {want:.3f} ms of "
+            "the same step")
+        if abs(k / want - 1) > 0.1:
+            raise AssertionError("tools stage_profile: the full step's "
+                                 "kernel time is more than 10% from the "
+                                 "chunk phase's profile")
+    if "probe_alone_ms" in chunk:
+        alone = chunk["probe_alone_ms"]["merge-sort"]
+        d = probe["kernel_delta_ms"]
+        log(f"tools cross-check: the probe stop adds {d:.3f} ms of kernels "
+            f"({probe['delta_ms']:.3f} ms host clock); the merge-sort probe "
+            f"alone {alone:.3f} ms")
+        if abs(d / alone - 1) > 0.2:
+            raise AssertionError("tools stage_profile: the probe stop is "
+                                 "more than 20% from the probe alone")
+    if not ("merge-sort" in chunk and "probe_alone_ms" in chunk):
+        log("tools cross-check: the chunk phase did not run; not compared")
+    run_tool("primitives", "tools.primitives", "--cache", DATA)
+    parity = run_tool("bench_parity", "tools.bench_parity", 100_000,
+                      "--cache", bench_dir)[-1]
+    if not parity["parity"]:
+        raise AssertionError("tools bench_parity: the BED files differ")
+    shard = expected_launches(None, False)
+    for row in run_tool("weak_scaling", "tools.weak_scaling", "--cache",
+                        DATA)[1:]:
+        n = row["devices"]
+        if row["launches_per_call"] != {k: n * v for k, v in shard.items()}:
+            raise AssertionError(f"tools weak_scaling at {n} shards: "
+                                 f"launches {row['launches_per_call']}")
 
 
 # ---------------------------------------------------------------------
@@ -1501,7 +1571,8 @@ def profile_step(seeder, rw, B: int, L: int, label: str = "chunk") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,path,hic,batch,flows,chunk,mesh")
+                    default="kernels,path,hic,batch,flows,chunk,mesh,"
+                    "tools")
     ap.add_argument("--genome-core", type=int, default=96_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--ptxas", action="store_true",
@@ -1545,7 +1616,8 @@ def main() -> int:
     # the data (simulation + the port's index build) is made by a child
     # process while this one builds and checks the kernels
     data = None
-    if {"path", "hic", "batch", "flows", "chunk", "mesh"} & set(phases):
+    if {"path", "hic", "batch", "flows", "chunk", "mesh", "tools"} \
+            & set(phases):
         data = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--make-data",
              "--genome-core", str(args.genome_core),
@@ -1575,7 +1647,9 @@ def main() -> int:
                      ("batch", lambda: phase_batch(results)),
                      ("flows", lambda: phase_flows(results)),
                      ("chunk", lambda: phase_chunk(results)),
-                     ("mesh", lambda: phase_mesh(results, args.pairs))):
+                     ("mesh", lambda: phase_mesh(results, args.pairs)),
+                     ("tools", lambda: phase_tools(results, args.genome_core,
+                                                   args.pairs))):
         if ok and name in phases:
             try:
                 fn()

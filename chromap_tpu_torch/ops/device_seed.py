@@ -363,14 +363,45 @@ def _pack_dropoff(err, end, rml):
             | (torch.clamp(rml, 0, 255).to(I64) << 17))
 
 
+def _stage_out(*arrs):
+    """Profiling checkpoint: one wrapping 32-bit sum per live output of a
+    stage, as (sums int64 (n,), zeros int32 (1,)) -- the step's (dl, full)
+    shape. A u64 (int64 carrier) is summed as its two int32 words, as the
+    JAX helper bitcasts, so no 64-bit reduction is billed to the stage;
+    other types sum their values as u32. Sums are mod 2^32 and do not
+    depend on layout, so the (MZ, B) planes here sum to the JAX
+    program's values. Only the profiling tools (tools/stage_profile.py,
+    tools/full_time.py) build steps with `stop`."""
+    vals = []
+    for a in arrs:
+        if a.dtype == I64:
+            a = a.contiguous().view(I32)
+        vals.append(a.sum(dtype=I64) & M32)
+    return (torch.stack(vals),
+            torch.zeros(1, dtype=I32, device=vals[0].device))
+
+
+# the `stop` checkpoints of `_build_step`, in order (None: the full step)
+STAGES = ("unpack", "kmer", "emission", "mzcompact", "probe", "agg",
+          "repstats", "expand", "sort", "scatter", "cluster", "candcompact",
+          "gatherref", None)
+
+
 def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
-                num_refs: int, split: bool = False, probe=None):
+                num_refs: int, split: bool = False, probe=None,
+                stop: str | None = None):
     """Returns the batch step; the index/reference tensors are arguments,
     as in the JAX program. `split` verifies with drop-off Myers (Hi-C)
     instead of banded Myers. `probe` picks the index probe: None the
     merged sort (searchsorted where the hash is too wide to pack),
     "sortss" searchsorted always, (shift, depth) the bucketed search,
-    which takes the `probe_table` and `keys_lo` tensors."""
+    which takes the `probe_table` and `keys_lo` tensors. `stop` (one of
+    STAGES) truncates the step after the named stage and returns
+    `_stage_out` of that stage's live outputs (profiling only); kernel A
+    fuses the JAX program's `kmer` and `emission` stages, so both stop
+    right after it."""
+    if stop not in STAGES:
+        raise ValueError(f"unknown stop {stop!r}; one of {STAGES}")
 
     def step(rw, lengths, hash_keys, offcnt, occurrences,
              ref_words, ref_nwords, ref_lens, ref_offsets,
@@ -389,11 +420,17 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
 
         # ---- kernel A: minimizer front end over the (L, B) plane -------
         codes_T = _unpack_codes_T(packed, nmask, B, L)
+        if stop == "unpack":
+            return _stage_out(codes_T)
         len_row = lengths.to(I32).reshape(1, B).contiguous()
         hlo_T, hhi_T, emit_T, mm_row, bad_row = dense_minimizer(
             codes_T, len_row, k, w, L)
         mm_count = mm_row[0]
         bad_mz = (bad_row[0] != 0) | (lengths != L)
+        if stop == "kmer":
+            return _stage_out(hlo_T, hhi_T)
+        if stop == "emission":
+            return _stage_out(emit_T != 0, mm_count, bad_mz)
 
         # ---- per-read minimizer compaction -----------------------------
         # (MZ, B) slot-major planes: slot d of lane b is the read's d-th
@@ -424,6 +461,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         mz_h = mz_h2.reshape(-1)                              # (Mtot,)
         mz_valid = mz_valid2.reshape(-1)
         mz_packmeta = meta2.reshape(-1)
+        if stop == "mzcompact":
+            return _stage_out(mz_h, mz_packmeta)
 
         # ---- index probe -------------------------------------------------
         ib = max(1, (Mtot - 1).bit_length())
@@ -448,6 +487,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         else:
             off = srl64(oc, 12)
         cnt = torch.where(found, (oc & 0xFFF).to(I32), 0)
+        if stop == "probe":
+            return _stage_out(off, cnt, found)
 
         # round-1 frequency cap (candidate_processor.cc:24-32)
         cnt2 = cnt.reshape(MZ, B)
@@ -458,6 +499,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         esc_any = ((cnt2 > 0) & (cnt2 < f1)).any(0)
         round2 = (total_rd == 0) & esc_any
         overflow_rd = total_rd > HCAP
+        if stop == "agg":
+            return _stage_out(total_rd, round2, overflow_rd)
 
         # ---- repetitive-seed stats (index.cc:507-523) ---------------------
         rep_mask = found.reshape(MZ, B) & (cnt2 >= f0)
@@ -471,6 +514,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         rep_count = rep_mask.sum(0, dtype=I32)
         num_required = torch.clamp(mm_count - rep_count, 1,
                                    min_seeds).to(I32)
+        if stop == "repstats":
+            return _stage_out(rep_len, num_required)
 
         # ---- flat occurrence expansion (index.cc:237-349) ----------------
         # per-hit-slot owner metadata and occurrence index from
@@ -515,6 +560,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         hit_hi = torch.where(same, rid, rid | (1 << 31))
         hit_hi = torch.where(slot_ok, hit_hi, M32)
         hit_lo = torch.where(slot_ok, start, M32)
+        if stop == "expand":
+            return _stage_out(hit_hi, hit_lo, hit_row)
 
         # ---- sort + scatter to the dense (H+1, B) cluster tile ----------
         # single-key u64 sort: row(15) | strand(1) | rid(14) | start(32)
@@ -526,6 +573,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         skey = sort_u64(key1)
         srow_raw = srl64(skey, 47)
         s_row = torch.clamp(srow_raw, max=B - 1)
+        if stop == "sort":
+            return _stage_out(skey)
         # hits per read are contiguous after the sort; the in-read rank
         # is the slot minus the first slot of the row's sorted run
         row_change = srow_raw != torch.cat(
@@ -538,6 +587,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         # each read's final cluster
         dense_w = _scatter_rows(skey, flatd, (HCAP + 1) * B,
                                 fill=UMAX64).reshape(HCAP + 1, B)
+        if stop == "scatter":
+            return _stage_out(dense_w)
 
         # ---- kernel C: cluster (exact sequential semantics) --------------
         cl_emit, cl_w = cluster_scan(dense_w, mm_count.contiguous(),
@@ -559,6 +610,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         cnt_w = srl64(cl_w, 47) & 0xFF
         supported = cl_emit & (cnt_w >= half[None, :])
         augment = ~supported.any(0)
+        if stop == "cluster":
+            return _stage_out(cl_w, n_pos, n_neg, augment)
 
         # ---- per-read candidate compaction --------------------------------
         # emitted candidates per non-fallback read are <= 2*CCAP (the
@@ -579,6 +632,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         sc_lo = sc_w & M32
         sc_cnt = srl64(sc_w, 47) & 0xFF
         sc_row = csrc % B
+        if stop == "candcompact":
+            return _stage_out(sc_w, sc_row)
 
         # ---- kernel B: verification (alignment.cc:141-192) ---------------
         crid = srl64(sc_w, 32) & 0x3FFF
@@ -591,6 +646,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         pstart = torch.where(vvalid, ref_offsets[rid_c] + pos64 - e, 0)
         patterns = _gather_ref_windows(ref_words, ref_nwords, pstart,
                                        L + 2 * e, captot)
+        if stop == "gatherref":
+            return _stage_out(patterns)
         tex = _gather_read_rows(packed, nmask, sc_row, L)
         negm = (cneg == 1)[:, None]
         if split:

@@ -455,3 +455,38 @@ def test_sharded_myers_on_card(card):
     np.testing.assert_array_equal(errors, want[0].numpy())
     np.testing.assert_array_equal(ends, want[1].numpy())
     assert accepted == int((want[0] <= e).sum()) and 0 < accepted < n
+
+
+def test_tools_launch_the_kernels_each_stop_implies(card, tmp_path, capsys):
+    """stage_profile on the card, in BED and split mode, at a small size:
+    each stop launches the hand-written kernels its stages hold -- A from
+    `kmer` on, C from `cluster` on, B (BED) or D twice (split: the primary
+    pass and the 5'-gap retry) only in the full step -- and the profiler
+    sees device time at every stop. weak_scaling at 1, 2 and 4 shards of
+    the card launches A, B and C once per shard per call."""
+    import argparse
+    import json
+
+    from chromap_tpu_torch import bench
+    from chromap_tpu_torch.tools import stage_profile, weak_scaling
+    bench.ensure_data(str(tmp_path), 2000, 50_000)
+    for split in (False, True):
+        ap = argparse.ArgumentParser()
+        stage_profile.add_chunk_args(ap)
+        args = ap.parse_args(["--cache", str(tmp_path), "--rows", "1024",
+                              "--reps", "1"] + (["--split"] if split else []))
+        rows = stage_profile.run_stops(args, ds.STAGES, "stage_profile")
+        for row, stop in zip(rows, ds.STAGES):
+            want = stage_profile.expected_launches(stop, split)
+            assert row["own"] == want, (stop, row["own"])
+            assert row["kernel_ms"] > 0 and row["launches"] > 0
+        assert rows[-1]["launches"] > rows[0]["launches"]
+    capsys.readouterr()
+    weak_scaling.main(["--per-device-reads", "256", "--cache", str(tmp_path)])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert lines[0]["device"]["torch_device"] == "cuda"
+    shard = stage_profile.expected_launches(None, False)
+    for row in lines[1:]:
+        n = row["devices"]
+        assert row["launches_per_call"] == {k: n * v
+                                            for k, v in shard.items()}
