@@ -1,0 +1,9 @@
+"""cluster_scan_roofline in the BED cell, where it moves another end-to-end metric
+than in the Hi-C cell; read as cluster_scan_roofline.py reads it."""
+
+import os
+
+from portbench.spec import _load
+
+read = _load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "cluster_scan_roofline.py")).read
