@@ -14,6 +14,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "engine.cpp")
 _SO = os.path.join(_HERE, "_engine.so")
@@ -882,13 +884,17 @@ def native_postprocess_write(cfg, ref_names: List[bytes], arrays: dict,
                              tn5: bool, dedup: bool,
                              se_mode: bool = False) -> Tuple[int, int, int]:
     """Sort/Tn5/dedup/filter/write PE (or SE) records natively. Returns
-    (written, uni, multi)."""
+    (written, uni, multi). With tracing on, the stages' own clock stamps
+    become the spans output.sort (the Tn5 shift and the sort) and
+    output.write (the dedup, fused with the filter, format and write),
+    children of the span open around the call."""
     lib = load_library()
     names_bytes = b"".join(ref_names)
     name_offsets = np.zeros(len(ref_names) + 1, dtype=np.int64)
     np.cumsum([len(x) for x in ref_names], out=name_offsets[1:])
     n = len(arrays["rid"])
-    stats = np.zeros(3, dtype=np.int64)
+    # written, uni, multi, then the three stamps of cn_postprocess_write
+    stats = np.zeros(6, dtype=np.int64)
     fmt = 0 if cfg.output_format == "bed" else 1
     res = lib.cn_postprocess_write(
         cfg.mapping_output_file_path.encode(), fmt, cfg.mapq_threshold,
@@ -899,6 +905,10 @@ def native_postprocess_write(cfg, ref_names: List[bytes], arrays: dict,
         _ptr(arrays["posalen"]), _ptr(arrays["negalen"]), n, _ptr(stats))
     if res < 0:
         raise IOError(f"cannot write {cfg.mapping_output_file_path}")
+    if tracing.TRACER.on:
+        t0, t1, t2 = stats[3:].tolist()
+        tracing.add("output.sort", t0, t1)
+        tracing.add("output.write", t1, t2)
     return int(stats[0]), int(stats[1]), int(stats[2])
 
 

@@ -19,6 +19,7 @@
 #include <algorithm>
 #include <array>
 #include <cassert>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -4446,16 +4447,26 @@ int64_t cn_pack_reads_se(const char* r, const int64_t* o, int64_t n,
   return 0;
 }
 
+static int64_t steady_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
 // Sort + Tn5 + dedup + mapq-filter + write PE BED/TagAlign records.
 // format: 0 = BED, 1 = TagAlign(BEDPE). Returns #records written
 // (post-filter). dedup_mode: 0 none, 1 in-memory semantics.
+// out_stats[3..5] are steady_clock stamps (ns; CLOCK_MONOTONIC, the clock
+// of Python's perf_counter_ns) at the start, after the Tn5 shift and the
+// sort, and after the dedup, filter, format and write.
 int64_t cn_postprocess_write(
     const char* out_path, int format, int mapq_threshold, int tn5_shift,
     int dedup_mode, int se_mode, const char* ref_names_bytes,
     const int64_t* ref_name_offsets, int32_t num_refs, int32_t* rid,
     uint32_t* read_id, uint32_t* start, uint16_t* flen, uint8_t* mapq,
     uint8_t* dir, uint8_t* uniq, uint16_t* posalen, uint16_t* negalen,
-    int64_t n, int64_t* out_stats /*[3]: written, uni, multi*/) {
+    int64_t n, int64_t* out_stats /*[6]: written, uni, multi, 3 stamps*/) {
+  out_stats[3] = steady_ns();
   // Tn5 shift first (in-memory order: Tn5 then dedup, chromap.h:1322-1334)
   if (tn5_shift) {
     for (int64_t i = 0; i < n; ++i) {
@@ -4483,6 +4494,7 @@ int64_t cn_postprocess_write(
     if (posalen[a] != posalen[b]) return posalen[a] < posalen[b];
     return negalen[a] < negalen[b];
   });
+  out_stats[4] = steady_ns();
 
   FILE* out = fopen(out_path, "w");
   if (!out) return -1;
@@ -4542,6 +4554,7 @@ int64_t cn_postprocess_write(
     }
   }
   fclose(out);
+  out_stats[5] = steady_ns();
   out_stats[0] = written;
   out_stats[1] = uni;
   out_stats[2] = multi;

@@ -977,10 +977,6 @@ class DeviceSeeder:
             event.record()
         return dl_host, full, B, event
 
-    def download_bytes(self, handle) -> int:
-        """Bytes of a submitted batch's download."""
-        return handle[0][0].nbytes
-
     def resolve(self, handle
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
         """Blocks on a submitted batch. Returns (read_meta u64 (B,),
@@ -1098,11 +1094,6 @@ class MeshSeeder(DeviceSeeder):
                 None if lengths is None else np.asarray(lengths)[rows],
                 Bs, L, stream))
         return shards, CANDS_PER_READ * Bs, L
-
-    def download_bytes(self, handle) -> int:
-        if not isinstance(handle[0], list):
-            return super().download_bytes(handle)
-        return sum(shard[0].nbytes for shard in handle[0])
 
     def resolve(self, handle):
         shards, captot_s, L = handle

@@ -17,6 +17,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import tracing
 from .config import IndexConfig, MappingConfig
 from .index.index import MinimizerIndex, build_index
 from .index.minimizers import generate_minimizers
@@ -36,6 +37,12 @@ from .utils import generate_seed_from_codes, reverse_complement_ascii
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr)
+
+
+def _count_cpu_chunk(n: int) -> None:
+    """Counters of a chunk of `n` pairs (reads) mapped on the host."""
+    tracing.count("chunks.cpu")
+    tracing.count("pairs.cpu", n)
 
 
 def construct_index(cfg: IndexConfig) -> None:
@@ -327,6 +334,7 @@ class MappingPipeline:
         key = generate_seed_from_codes(rec_bc.codes(), 0, self.barcode_length)
         return whitelisted, key
 
+    @tracing.traced_pass
     def map_single_end(self) -> None:
         cfg = self.cfg
         writer = self._make_writer()
@@ -371,9 +379,10 @@ class MappingPipeline:
 
         t_map = time.time()
         while True:
-            batch = stream.read_batch(cfg.read_batch_size)
-            batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
-                        if stream_bc else None)
+            with tracing.span("records.read"):
+                batch = stream.read_batch(cfg.read_batch_size)
+                batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
+                            if stream_bc else None)
             if batch_bc is not None and len(batch_bc) != len(batch):
                 raise RuntimeError("Numbers of reads and barcodes don't match!")
             if not batch:
@@ -473,6 +482,7 @@ class MappingPipeline:
 
     # ------------------------------ paired-end ------------------------------
 
+    @tracing.traced_pass
     def map_paired_end(self) -> None:
         cfg = self.cfg
         writer = self._make_writer()
@@ -548,10 +558,11 @@ class MappingPipeline:
         generator = MT19937(11)
         t_map = time.time()
         while True:
-            batch1 = stream1.read_batch(cfg.read_batch_size)
-            batch2 = stream2.read_batch(cfg.read_batch_size)
-            batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
-                        if stream_bc else None)
+            with tracing.span("records.read"):
+                batch1 = stream1.read_batch(cfg.read_batch_size)
+                batch2 = stream2.read_batch(cfg.read_batch_size)
+                batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
+                            if stream_bc else None)
             if len(batch1) != len(batch2) or (
                     batch_bc is not None and len(batch_bc) != len(batch1)):
                 raise RuntimeError("Numbers of reads and barcodes don't match!")
@@ -869,6 +880,7 @@ class MappingPipeline:
                 and not cfg.matrix_output_prefix
                 and not cfg.allocate_multi_mappings)
 
+    @tracing.traced("lowmem.spill")
     def _spill_now(self, base) -> None:
         from .io.lowmem import spill_mappings, spill_bed_arrays
         chunks = getattr(self, "_spill_chunks", None)
@@ -953,8 +965,12 @@ class MappingPipeline:
                                               n1, base_read_id, threshold,
                                               account)
                         else:
-                            account(engine.map_pairs_raw(
-                                b1, o1, b2, o2, n1, base_read_id, threshold))
+                            with tracing.span("native.cpu_map",
+                                              tracing.chunk_ids(1)):
+                                account(engine.map_pairs_raw(
+                                    b1, o1, b2, o2, n1, base_read_id,
+                                    threshold))
+                            _count_cpu_chunk(n1)
                         base_read_id += n1
                         log(f"Mapped {n1} read pairs.")
                 finally:
@@ -966,24 +982,21 @@ class MappingPipeline:
         finally:
             if hyb is not None:
                 hyb["executor"].shutdown(wait=True)
-        if hyb is not None and hyb["prof"] is not None:
-            import json as _json
-            log("HYBRID_PROFILE " + _json.dumps(
-                {k: (round(v, 4) if isinstance(v, float) else v)
-                 for k, v in hyb["prof"].items()}))
         log(f"Mapped all reads in {_time.time() - t_map:.2f}s.")
         self._output_stats()
 
-        arrays = {key: (np.concatenate([c[key] for c in chunks])
-                        if chunks else np.empty(0))
-                  for key in (chunks[0] if chunks else
-                              {"rid": None, "read_id": None, "start": None,
-                               "flen": None, "mapq": None, "dir": None,
-                               "uniq": None, "posalen": None,
-                               "negalen": None})}
-        written, uni, multi = native_postprocess_write(
-            cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
-            dedup=cfg.remove_pcr_duplicates)
+        with tracing.span("output.concat"):
+            arrays = {key: (np.concatenate([c[key] for c in chunks])
+                            if chunks else np.empty(0))
+                      for key in (chunks[0] if chunks else
+                                  {"rid": None, "read_id": None,
+                                   "start": None, "flen": None,
+                                   "mapq": None, "dir": None, "uniq": None,
+                                   "posalen": None, "negalen": None})}
+        with tracing.span("output.native"):
+            written, uni, multi = native_postprocess_write(
+                cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
+                dedup=cfg.remove_pcr_duplicates)
         if cfg.remove_pcr_duplicates:
             log(f"{uni + multi} mappings left after deduplication.")
         log(f"# uni-mappings: {uni}, # multi-mappings: {multi}, "
@@ -1020,6 +1033,7 @@ class MappingPipeline:
         def _read(self):
             return [r.read_batch(self.batch_n) for r in self.readers]
 
+        @tracing.traced("fastq.wait")
         def next(self):
             if self.ex is None:
                 return self._read()
@@ -1090,14 +1104,7 @@ class MappingPipeline:
         """
         from concurrent.futures import ThreadPoolExecutor
 
-        import os as _os
-        prof = None
-        if _os.environ.get("CHROMAP_TPU_HYBRID_PROFILE"):
-            prof = {"cpu_chunks": 0, "dev_chunks": 0, "cpu_map_s": 0.0,
-                    "pack_s": 0.0, "submit_s": 0.0, "finish_s": 0.0,
-                    "blocked_s": 0.0, "resolve_s": 0.0, "dl_bytes": 0,
-                    "fallback_chunks": 0, "copy_s": 0.0, "flush_wall_s": 0.0}
-        return {"buffered": [], "pool": [], "pending": [], "prof": prof,
+        return {"buffered": [], "pool": [], "pending": [],
                 "executor": ThreadPoolExecutor(max_workers=1)}
 
     def _hybrid_step(self, engine, hyb, b1, o1, b2, o2, n1: int,
@@ -1106,6 +1113,7 @@ class MappingPipeline:
 
         cfg = self.cfg
         P = self._hybrid_tuner().g
+        cid = tracing.chunk_ids(1)
 
         # copy the reader's (reused) buffers into a pooled slot
         offs1 = np.ctypeslib.as_array(
@@ -1121,17 +1129,16 @@ class MappingPipeline:
         slot = hyb["pool"].pop() if hyb["pool"] else \
             [np.empty(0, np.uint8), np.empty(0, np.int64),
              np.empty(0, np.uint8), np.empty(0, np.int64)]
-        t_copy0 = time.time() if hyb["prof"] is not None else 0.0
-        for i, src in enumerate((raw1, offs1, raw2, offs2)):
-            if slot[i].size < src.size:
-                slot[i] = np.empty(src.size, src.dtype)
-            np.copyto(slot[i][:src.size], src)
-        if hyb["prof"] is not None:
-            hyb["prof"]["copy_s"] += time.time() - t_copy0
-        hyb["buffered"].append((slot, n1, base_read_id, threshold))
+        with tracing.span("hybrid.copy", cid):
+            for i, src in enumerate((raw1, offs1, raw2, offs2)):
+                if slot[i].size < src.size:
+                    slot[i] = np.empty(src.size, src.dtype)
+                np.copyto(slot[i][:src.size], src)
+        hyb["buffered"].append((slot, n1, base_read_id, threshold, cid))
         if len(hyb["buffered"]) >= P:
             self._hybrid_flush(engine, hyb, account, final=False)
 
+    @tracing.traced("hybrid.flush")
     def _hybrid_flush(self, engine, hyb, account, final: bool) -> None:
         """Map the buffered group: submit every chunk but the first to
         the device (they pipeline back-to-back on the chip and their
@@ -1147,30 +1154,27 @@ class MappingPipeline:
         chunks = hyb["buffered"]
         hyb["buffered"] = []
         tuner = self._hybrid_tuner()
+        tracing.count("hybrid.flushes")
+        tracing.count("hybrid.group_sum", tuner.g)
         t_flush0 = time.time()
         pend = []
         if len(chunks) >= 2:
             for entry in chunks[1:]:
-                slot, n1, base, thr = entry
-                p = self._hybrid_submit_device(engine, hyb, slot, n1,
-                                               base, thr)
+                p = self._hybrid_submit_device(engine, hyb, *entry)
                 pend.append(("dev", p) if p is not None
                             else ("cpu", entry))
             chunks = chunks[:1]
 
         def _cpu_map(entry):
-            slot, n1, base, thr = entry
+            slot, n1, base, thr, cid = entry
             r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
             r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
             o1p = slot[1].ctypes.data_as(_ct.c_void_p)
             o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-            t0 = time.time()
-            account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
-                                         thr))
-            tuner.cpu(time.time() - t0)
-            if hyb["prof"] is not None:
-                hyb["prof"]["cpu_chunks"] += 1
-                hyb["prof"]["cpu_map_s"] += time.time() - t0
+            with tracing.span("native.cpu_map", cid):
+                account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
+                                             thr))
+            _count_cpu_chunk(n1)
             hyb["pool"].append(slot)
 
         for kind, item in hyb["pending"]:
@@ -1189,12 +1193,10 @@ class MappingPipeline:
                     _cpu_map(item)
             pend = []
         hyb["pending"] = pend
-        if hyb["prof"] is not None:
-            hyb["prof"]["flush_wall_s"] += time.time() - t_flush0
         tuner.flush_done(time.time() - t_flush0)
 
     def _hybrid_submit_device(self, engine, hyb, slot, n1: int,
-                              base_read_id: int, threshold: int):
+                              base_read_id: int, threshold: int, cid: int):
         """Pack + dispatch one buffered chunk to the device; the resolve
         (transfer wait + unpack) runs on the worker thread. Returns None
         when the chunk is ineligible (the CPU maps it instead)."""
@@ -1220,40 +1222,30 @@ class MappingPipeline:
         chunk = max(n1, min(cfg.device_batch_size, cfg.read_batch_size))
         W = (L + 15) // 16 + (L + 31) // 32
         need = 2 * chunk * W
-        prof = hyb["prof"]
-        t_pack0 = time.time() if prof is not None else 0.0
-        buf = self._next_pack_buf(need)
-        r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
-        r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
-        o1p = slot[1].ctypes.data_as(_ct.c_void_p)
-        o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-        rc = engine.lib.cn_pack_reads(r1p, o1p, r2p, o2p, n1, L,
-                                      buf.ctypes.data_as(_ct.c_void_p))
-        if rc != 0:
-            return None
-        buf2d = buf[:need].reshape(2 * chunk, W)
-        if n1 < chunk:
-            buf2d[2 * n1:] = 0xFFFFFFFF
-        if prof is not None:
-            prof["pack_s"] += time.time() - t_pack0
+        with tracing.span("seeder.pack", cid):
+            buf = self._next_pack_buf(need)
+            r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
+            r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
+            o1p = slot[1].ctypes.data_as(_ct.c_void_p)
+            o2p = slot[3].ctypes.data_as(_ct.c_void_p)
+            rc = engine.lib.cn_pack_reads(r1p, o1p, r2p, o2p, n1, L,
+                                          buf.ctypes.data_as(_ct.c_void_p))
+            if rc != 0:
+                return None
+            buf2d = buf[:need].reshape(2 * chunk, W)
+            if n1 < chunk:
+                buf2d[2 * n1:] = 0xFFFFFFFF
+        fut = self._submit_and_resolve(hyb["executor"], buf2d, 2 * chunk, L,
+                                       cid)
+        return (fut, slot, n1, base_read_id, threshold, cid)
 
-        t_sub0 = time.time() if prof is not None else 0.0
-        handle = self._device_seeder.submit_packed(buf2d, 2 * chunk, L)
+    def _submit_and_resolve(self, executor, buf2d, B: int, L: int, cid):
+        """Dispatch packed rows to the device seeder and resolve them on
+        `executor`'s thread; returns the future of the resolve."""
         seeder = self._device_seeder
-        if prof is not None:
-            prof["submit_s"] += time.time() - t_sub0
-
-        def _resolve():
-            t0 = time.time()
-            r = seeder.resolve(handle)
-            if prof is not None:
-                prof["resolve_s"] += time.time() - t0
-                prof["dl_bytes"] += seeder.download_bytes(handle)
-            return r, time.time()
-
-        t_sub = time.time()
-        fut = hyb["executor"].submit(_resolve)
-        return (fut, slot, n1, base_read_id, threshold, t_sub)
+        with tracing.span("seeder.submit", cid):
+            handle = seeder.submit_packed(buf2d, B, L)
+        return executor.submit(seeder.resolve, handle)
 
     class _HybridTuner:
         """Adapts the hybrid group size G: each group maps its FIRST
@@ -1271,20 +1263,8 @@ class MappingPipeline:
 
         def __init__(self, g0: int):
             self.g = max(2, g0)
-            self.cpu_t = None
-            self.dev_t = None
-            self._dev_samples = 0
             self._blocked = 0.0
             self._flushes = 0
-
-        def cpu(self, dt: float) -> None:
-            self.cpu_t = dt if self.cpu_t is None \
-                else 0.7 * self.cpu_t + 0.3 * dt
-
-        def dev(self, dt: float) -> None:
-            self._dev_samples += 1
-            self.dev_t = dt if self.dev_t is None \
-                else 0.7 * self.dev_t + 0.3 * dt
 
         def dev_wait(self, dt: float) -> None:
             self._blocked += dt
@@ -1309,36 +1289,34 @@ class MappingPipeline:
             self._hybrid_tuner_obj = t
         return t
 
+    def _wait_device(self, fut, cid):
+        """The main thread's wait for a device chunk's resolve; the wait
+        feeds the tuner's control of G."""
+        t_wait0 = time.time()
+        with tracing.span("hybrid.wait", cid):
+            result = fut.result()
+        self._hybrid_tuner().dev_wait(time.time() - t_wait0)
+        return result
+
     def _hybrid_finish_dev(self, engine, hyb, pend, account) -> None:
         """Finish one in-flight device chunk (pending-list entry)."""
         import ctypes as _ct
 
-        fut, slot, n1, base, threshold, t_sub = pend
-        prof = hyb["prof"]
-        t_wait0 = time.time()
-        (meta, cand_pos, cand_meta, overflow), t_end = fut.result()
-        tuner = self._hybrid_tuner()
-        tuner.dev(t_end - t_sub)
-        tuner.dev_wait(time.time() - t_wait0)
-        if prof is not None:
-            prof["blocked_s"] += time.time() - t_wait0
+        fut, slot, n1, base, threshold, cid = pend
+        meta, cand_pos, cand_meta, overflow = self._wait_device(fut, cid)
         r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
         r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
         o1p = slot[1].ctypes.data_as(_ct.c_void_p)
         o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-        t_fin0 = time.time() if prof is not None else 0.0
-        if overflow:
-            account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
-                                         threshold))
-            if prof is not None:
-                prof["fallback_chunks"] += 1
-        else:
-            account(engine.map_pairs_dev_seeded(r1p, o1p, r2p, o2p, n1,
-                                                base, meta, cand_pos,
-                                                cand_meta))
-        if prof is not None:
-            prof["dev_chunks"] += 1
-            prof["finish_s"] += time.time() - t_fin0
+        with tracing.span("native.finish", cid):
+            if overflow:
+                account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
+                                             threshold))
+            else:
+                account(engine.map_pairs_dev_seeded(r1p, o1p, r2p, o2p, n1,
+                                                    base, meta, cand_pos,
+                                                    cand_meta))
+        tracing.count("chunks.dev")
         hyb["pool"].append(slot)
 
     class _HybridInfo:
@@ -1371,6 +1349,7 @@ class MappingPipeline:
                 np.concatenate(cig_off), md, np.concatenate(md_off),
                 np.concatenate(nm) if nm else np.empty(0, np.uint16))
 
+    @tracing.traced("hybrid")
     def _map_pairs_hybrid(self, engine, reads1, reads2, base_read_id: int,
                           threshold: int, full: bool = False,
                           sam: bool = False, want_info: bool = False):
@@ -1391,13 +1370,16 @@ class MappingPipeline:
         use_dev = (cfg.use_device and n > C
                    and self._get_seeder() is not None)
         if not use_dev:
-            if full:
-                out, stats, aux = engine.map_pairs_full(
-                    reads1, reads2, base_read_id, threshold, sam_aux=sam)
-            else:
-                out, stats = engine.map_pairs(reads1, reads2, base_read_id,
-                                              threshold)
-                aux = None
+            with tracing.span("native.cpu_map", tracing.chunk_ids(1)):
+                if full:
+                    out, stats, aux = engine.map_pairs_full(
+                        reads1, reads2, base_read_id, threshold,
+                        sam_aux=sam)
+                else:
+                    out, stats = engine.map_pairs(reads1, reads2,
+                                                  base_read_id, threshold)
+                    aux = None
+            _count_cpu_chunk(n)
             if not want_info:
                 return out, stats
             info = self._HybridInfo()
@@ -1407,14 +1389,16 @@ class MappingPipeline:
                 info.tl1, info.tl2 = engine.get_pair_trimmed_lengths()
             return out, stats, info
 
-        r1_bytes = b"".join(reads1)
-        r2_bytes = b"".join(reads2)
-        o1 = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads1], out=o1[1:])
-        o2 = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads2], out=o2[1:])
+        with tracing.span("records.pack"):
+            r1_bytes = b"".join(reads1)
+            r2_bytes = b"".join(reads2)
+            o1 = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(r) for r in reads1], out=o1[1:])
+            o2 = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(r) for r in reads2], out=o2[1:])
         bounds = [(s, min(s + C, n)) for s in range(0, n, C)]
         nb = len(bounds)
+        c0 = tracing.chunk_ids(nb)
         outs = [None] * nb
         auxes = [None] * nb if (full and sam) else None
         flags = np.zeros(n, dtype=np.uint8) if want_info else None
@@ -1437,12 +1421,9 @@ class MappingPipeline:
                 tl1[s:e] = t1[:e - s]
                 tl2[s:e] = t2[:e - s]
 
-        tuner = self._hybrid_tuner()
-
-        def run_cpu(ci):
+        def map_host(ci):
             s, e = bounds[ci]
             thr = max(0, min(threshold - s, e - s))
-            t0 = time.time()
             if full:
                 out, st, aux = engine.map_pairs_full_raw(
                     r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
@@ -1453,10 +1434,14 @@ class MappingPipeline:
                 out, st = engine.map_pairs_raw(
                     r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
                     e - s, base_read_id + s, thr)
-            tuner.cpu(time.time() - t0)
             outs[ci] = out
             stats_sum[:] += st
             side_channels(ci)
+
+        def run_cpu(ci):
+            with tracing.span("native.cpu_map", c0 + ci):
+                map_host(ci)
+            _count_cpu_chunk(bounds[ci][1] - bounds[ci][0])
 
         def submit_dev(ci):
             s, e = bounds[ci]
@@ -1466,81 +1451,46 @@ class MappingPipeline:
                 return None
             W = (L + 15) // 16 + (L + 31) // 32
             need = 2 * C * W
-            buf = self._next_pack_buf(need)
-            rc = engine.lib.cn_pack_reads(
-                r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s), nn, L,
-                buf.ctypes.data_as(_ct.c_void_p))
-            if rc != 0:
-                return None
-            buf2d = buf[:need].reshape(2 * C, W)
-            if nn < C:
-                buf2d[2 * nn:] = 0xFFFFFFFF
-            handle = self._device_seeder.submit_packed(buf2d, 2 * C, L)
-            seeder = self._device_seeder
-
-            def _resolve():
-                return seeder.resolve(handle), time.time()
-
-            t_sub = time.time()
-            fut = self._dev_executor().submit(_resolve)
-            return (fut, ci, t_sub)
+            with tracing.span("seeder.pack", c0 + ci):
+                buf = self._next_pack_buf(need)
+                rc = engine.lib.cn_pack_reads(
+                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s), nn,
+                    L, buf.ctypes.data_as(_ct.c_void_p))
+                if rc != 0:
+                    return None
+                buf2d = buf[:need].reshape(2 * C, W)
+                if nn < C:
+                    buf2d[2 * nn:] = 0xFFFFFFFF
+            return (self._submit_and_resolve(self._dev_executor(), buf2d,
+                                             2 * C, L, c0 + ci), ci)
 
         def finish_dev(pend):
-            fut, ci, t_sub = pend
-            t_wait0 = time.time()
-            (meta, cp, cm, overflow), t_end = fut.result()
-            tuner.dev(t_end - t_sub)
-            tuner.dev_wait(time.time() - t_wait0)
-            if overflow:
-                run_cpu(ci)
-                return
+            fut, ci = pend
+            meta, cp, cm, overflow = self._wait_device(fut, c0 + ci)
             s, e = bounds[ci]
             nn = e - s
-            if full:
-                out, st = engine.map_pairs_dev_seeded_full(
-                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
-                    nn, base_read_id + s, meta, cp, cm)
-                if auxes is not None:
-                    auxes[ci] = engine.get_sam_aux()
-            else:
-                out, st = engine.map_pairs_dev_seeded(
-                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
-                    nn, base_read_id + s, meta, cp, cm)
-            outs[ci] = out
-            stats_sum[:] += st
-            side_channels(ci)
-
-        # multi-chunk pipelining (same scheme as _hybrid_flush): the
-        # group's FIRST chunk maps on the CPU, the rest submit to the
-        # device and finish -- in chunk order -- at the next group
-        pend = []
-        gi = 0
-        while gi < nb:
-            group = list(range(gi, min(gi + tuner.g, nb)))
-            t_flush0 = time.time()
-            newpend = []
-            cpu_list = group
-            if len(group) >= 2:
-                for ci in group[1:]:
-                    pdc = submit_dev(ci)
-                    newpend.append(("dev", pdc) if pdc is not None
-                                   else ("cpu", ci))
-                cpu_list = group[:1]
-            for kind, item in pend:
-                if kind == "dev":
-                    finish_dev(item)
+            with tracing.span("native.finish", c0 + ci):
+                if overflow:
+                    map_host(ci)
                 else:
-                    run_cpu(item)
-            for ci in cpu_list:
-                run_cpu(ci)
-            pend = newpend
-            gi += len(group)
-            tuner.flush_done(time.time() - t_flush0)
-        for kind, item in pend:
-            if kind == "dev":
-                finish_dev(item)
-            else:
-                run_cpu(item)
+                    if full:
+                        out, st = engine.map_pairs_dev_seeded_full(
+                            r1_bytes, off_ptr(o1, s), r2_bytes,
+                            off_ptr(o2, s), nn, base_read_id + s, meta, cp,
+                            cm)
+                        if auxes is not None:
+                            auxes[ci] = engine.get_sam_aux()
+                    else:
+                        out, st = engine.map_pairs_dev_seeded(
+                            r1_bytes, off_ptr(o1, s), r2_bytes,
+                            off_ptr(o2, s), nn, base_read_id + s, meta, cp,
+                            cm)
+                    outs[ci] = out
+                    stats_sum[:] += st
+                    side_channels(ci)
+            tracing.count("chunks.dev")
+
+        self._run_hybrid_groups(nb, run_cpu, submit_dev, finish_dev)
 
         out = {key: np.concatenate([o[key] for o in outs])
                for key in outs[0]}
@@ -1554,6 +1504,49 @@ class MappingPipeline:
             info.aux = self._merge_sam_aux(auxes)
         return out, stats_sum, info
 
+    def _run_hybrid_groups(self, nb: int, run_cpu, submit_dev,
+                           finish_dev) -> None:
+        """The records flows' multi-chunk pipelining over chunks 0..nb-1
+        (the scheme of _hybrid_flush): each group's FIRST chunk maps on
+        the CPU, the rest submit to the device (submit_dev returns None
+        for a chunk the CPU must map) and finish -- in chunk order -- at
+        the next group."""
+        tuner = self._hybrid_tuner()
+        pend = []
+        gi = 0
+        while gi < nb:
+            group = list(range(gi, min(gi + tuner.g, nb)))
+            with tracing.span("hybrid.flush"):
+                tracing.count("hybrid.flushes")
+                tracing.count("hybrid.group_sum", tuner.g)
+                t_flush0 = time.time()
+                newpend = []
+                cpu_list = group
+                if len(group) >= 2:
+                    for ci in group[1:]:
+                        pdc = submit_dev(ci)
+                        newpend.append(("dev", pdc) if pdc is not None
+                                       else ("cpu", ci))
+                    cpu_list = group[:1]
+                for kind, item in pend:
+                    if kind == "dev":
+                        finish_dev(item)
+                    else:
+                        run_cpu(item)
+                for ci in cpu_list:
+                    run_cpu(ci)
+                pend = newpend
+                gi += len(group)
+                tuner.flush_done(time.time() - t_flush0)
+        if pend:
+            with tracing.span("hybrid.flush"):
+                for kind, item in pend:
+                    if kind == "dev":
+                        finish_dev(item)
+                    else:
+                        run_cpu(item)
+
+    @tracing.traced("hybrid")
     def _map_single_hybrid(self, engine, r_bytes, r_off: np.ndarray,
                            n: int, base_read_id: int, threshold: int,
                            sam: bool = False):
@@ -1575,14 +1568,17 @@ class MappingPipeline:
                    and self._get_seeder() is not None)
         off_base = _ct.c_void_p(r_off.ctypes.data)
         if not use_dev:
-            out, stats = engine.map_single_raw(r_bytes, off_base, n,
-                                               base_read_id, threshold)
+            with tracing.span("native.cpu_map", tracing.chunk_ids(1)):
+                out, stats = engine.map_single_raw(r_bytes, off_base, n,
+                                                   base_read_id, threshold)
+            _count_cpu_chunk(n)
             if not sam:
                 return out, stats
             return out, stats, engine.get_sam_aux()
 
         bounds = [(s, min(s + C, n)) for s in range(0, n, C)]
         nb = len(bounds)
+        c0 = tracing.chunk_ids(nb)
         outs = [None] * nb
         auxes = [None] * nb if sam else None
         stats_sum = np.zeros(5, dtype=np.int64)
@@ -1590,21 +1586,20 @@ class MappingPipeline:
         def off_ptr(s):
             return _ct.c_void_p(r_off.ctypes.data + 8 * s)
 
-        tuner = self._hybrid_tuner()
-
-        def run_cpu(ci):
+        def map_host(ci):
             s, e = bounds[ci]
             thr = max(0, min(threshold - s, e - s))
-            t0 = time.time()
             out, st = engine.map_single_raw(r_bytes, off_ptr(s), e - s,
                                             base_read_id + s, thr)
-            # single-end chunks are half a pair chunk's work; normalize so
-            # the tuner's CPU unit stays one device dispatch's worth
-            tuner.cpu(2 * (time.time() - t0))
             outs[ci] = out
             stats_sum[:] += st
             if auxes is not None:
                 auxes[ci] = engine.get_sam_aux()
+
+        def run_cpu(ci):
+            with tracing.span("native.cpu_map", c0 + ci):
+                map_host(ci)
+            _count_cpu_chunk(bounds[ci][1] - bounds[ci][0])
 
         def submit_dev(ci):
             s, e = bounds[ci]
@@ -1614,75 +1609,37 @@ class MappingPipeline:
                 return None
             W = (L + 15) // 16 + (L + 31) // 32
             need = C * W
-            buf = self._next_pack_buf(need)
-            rc = engine.lib.cn_pack_reads_se(
-                r_bytes, off_ptr(s), nn, L,
-                buf.ctypes.data_as(_ct.c_void_p))
-            if rc != 0:
-                return None
-            buf2d = buf[:need].reshape(C, W)
-            if nn < C:
-                buf2d[nn:] = 0xFFFFFFFF
-            handle = self._device_seeder.submit_packed(buf2d, C, L)
-            seeder = self._device_seeder
-
-            def _resolve():
-                return seeder.resolve(handle), time.time()
-
-            t_sub = time.time()
-            fut = self._dev_executor().submit(_resolve)
-            return (fut, ci, t_sub)
+            with tracing.span("seeder.pack", c0 + ci):
+                buf = self._next_pack_buf(need)
+                rc = engine.lib.cn_pack_reads_se(
+                    r_bytes, off_ptr(s), nn, L,
+                    buf.ctypes.data_as(_ct.c_void_p))
+                if rc != 0:
+                    return None
+                buf2d = buf[:need].reshape(C, W)
+                if nn < C:
+                    buf2d[nn:] = 0xFFFFFFFF
+            return (self._submit_and_resolve(self._dev_executor(), buf2d,
+                                             C, L, c0 + ci), ci)
 
         def finish_dev(pend):
-            fut, ci, t_sub = pend
-            t_wait0 = time.time()
-            (meta, cp, cm, overflow), t_end = fut.result()
-            # SE device chunks carry half a pair chunk's reads;
-            # normalize like run_cpu so G stays comparable
-            tuner.dev(2 * (t_end - t_sub))
-            tuner.dev_wait(time.time() - t_wait0)
-            if overflow:
-                run_cpu(ci)
-                return
+            fut, ci = pend
+            meta, cp, cm, overflow = self._wait_device(fut, c0 + ci)
             s, e = bounds[ci]
-            out, st = engine.map_single_dev_seeded(
-                r_bytes, off_ptr(s), e - s, base_read_id + s, meta, cp, cm)
-            outs[ci] = out
-            stats_sum[:] += st
-            if auxes is not None:
-                auxes[ci] = engine.get_sam_aux()
-
-        # multi-chunk pipelining (same scheme as _hybrid_flush): the
-        # group's FIRST chunk maps on the CPU, the rest submit to the
-        # device and finish -- in chunk order -- at the next group
-        pend = []
-        gi = 0
-        while gi < nb:
-            group = list(range(gi, min(gi + tuner.g, nb)))
-            t_flush0 = time.time()
-            newpend = []
-            cpu_list = group
-            if len(group) >= 2:
-                for ci in group[1:]:
-                    pdc = submit_dev(ci)
-                    newpend.append(("dev", pdc) if pdc is not None
-                                   else ("cpu", ci))
-                cpu_list = group[:1]
-            for kind, item in pend:
-                if kind == "dev":
-                    finish_dev(item)
+            with tracing.span("native.finish", c0 + ci):
+                if overflow:
+                    map_host(ci)
                 else:
-                    run_cpu(item)
-            for ci in cpu_list:
-                run_cpu(ci)
-            pend = newpend
-            gi += len(group)
-            tuner.flush_done(time.time() - t_flush0)
-        for kind, item in pend:
-            if kind == "dev":
-                finish_dev(item)
-            else:
-                run_cpu(item)
+                    out, st = engine.map_single_dev_seeded(
+                        r_bytes, off_ptr(s), e - s, base_read_id + s, meta,
+                        cp, cm)
+                    outs[ci] = out
+                    stats_sum[:] += st
+                    if auxes is not None:
+                        auxes[ci] = engine.get_sam_aux()
+            tracing.count("chunks.dev")
+
+        self._run_hybrid_groups(nb, run_cpu, submit_dev, finish_dev)
 
         out = {key: np.concatenate([o[key] for o in outs])
                for key in outs[0]}
@@ -1727,26 +1684,31 @@ class MappingPipeline:
         from .mapping.records import PEBedRecord
         from .summary import CACHEHIT, TOTAL
 
-        reads1 = [bytes(r.seq) for r in batch1]
-        reads2 = [bytes(r.seq) for r in batch2]
-        # sharded batches have strided read ids: map indices explicitly
-        orig_ids = np.asarray([r.read_id for r in batch1], dtype=np.uint32)
+        with tracing.span("records.pack"):
+            reads1 = [bytes(r.seq) for r in batch1]
+            reads2 = [bytes(r.seq) for r in batch2]
+            # sharded batches have strided read ids: map indices explicitly
+            orig_ids = np.asarray([r.read_id for r in batch1],
+                                  dtype=np.uint32)
         out, stats = self._map_pairs_hybrid(engine, reads1, reads2, 0,
                                             threshold)
-        rid_a = out["rid"]
-        if self._array_spill_ok():
-            self._stash_bed_rows(rid_a, out, orig_ids, None, se=False)
-        else:
-            for i in range(len(rid_a)):
-                rec = PEBedRecord(
-                    read_id=int(orig_ids[int(out["read_id"][i])]),
-                    barcode=0,
-                    start=int(out["start"][i]), length=int(out["flen"][i]),
-                    mapq=int(out["mapq"][i]), direction=int(out["dir"][i]),
-                    is_unique=int(out["uniq"][i]), num_dups=1,
-                    positive_alignment_length=int(out["posalen"][i]),
-                    negative_alignment_length=int(out["negalen"][i]))
-                emit(int(rid_a[i]), rec)
+        with tracing.span("records.emit"):
+            rid_a = out["rid"]
+            if self._array_spill_ok():
+                self._stash_bed_rows(rid_a, out, orig_ids, None, se=False)
+            else:
+                for i in range(len(rid_a)):
+                    rec = PEBedRecord(
+                        read_id=int(orig_ids[int(out["read_id"][i])]),
+                        barcode=0,
+                        start=int(out["start"][i]),
+                        length=int(out["flen"][i]),
+                        mapq=int(out["mapq"][i]),
+                        direction=int(out["dir"][i]),
+                        is_unique=int(out["uniq"][i]), num_dups=1,
+                        positive_alignment_length=int(out["posalen"][i]),
+                        negative_alignment_length=int(out["negalen"][i]))
+                    emit(int(rid_a[i]), rec)
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -1850,34 +1812,38 @@ class MappingPipeline:
         cell-level dedup and fragment output downstream."""
         from .mapping.records import PEBedRecord
 
-        reads1, reads2, barcodes, sel = self._native_barcode_prefilter(
-            batch1, batch2, batch_bc)
+        with tracing.span("records.pack"):
+            reads1, reads2, barcodes, sel = self._native_barcode_prefilter(
+                batch1, batch2, batch_bc)
         if not reads1:
             return
         out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
                                                   0, threshold,
                                                   want_info=True)
-        self._native_barcode_cachehits(engine, out, len(reads1), barcodes,
-                                       flags=info.flags)
-        rid_a = out["rid"]
-        oid = np.asarray([batch1[bi].read_id for bi in sel],
-                         dtype=np.uint32)
-        bcs = np.asarray(barcodes, dtype=np.uint64)
-        idx = out["read_id"]
-        if self._array_spill_ok():
-            self._stash_bed_rows(rid_a, out, oid, bcs, se=False)
-        else:
-            for i in range(len(rid_a)):
-                j = int(idx[i])
-                rec = PEBedRecord(
-                    read_id=int(oid[j]), barcode=int(bcs[j]),
-                    start=int(out["start"][i]), length=int(out["flen"][i]),
-                    mapq=int(out["mapq"][i]), direction=int(out["dir"][i]),
-                    is_unique=int(out["uniq"][i]), num_dups=1,
-                    positive_alignment_length=int(out["posalen"][i]),
-                    negative_alignment_length=int(out["negalen"][i]),
-                    has_barcode=True)
-                emit(int(rid_a[i]), rec)
+        with tracing.span("records.emit"):
+            self._native_barcode_cachehits(engine, out, len(reads1),
+                                           barcodes, flags=info.flags)
+            rid_a = out["rid"]
+            oid = np.asarray([batch1[bi].read_id for bi in sel],
+                             dtype=np.uint32)
+            bcs = np.asarray(barcodes, dtype=np.uint64)
+            idx = out["read_id"]
+            if self._array_spill_ok():
+                self._stash_bed_rows(rid_a, out, oid, bcs, se=False)
+            else:
+                for i in range(len(rid_a)):
+                    j = int(idx[i])
+                    rec = PEBedRecord(
+                        read_id=int(oid[j]), barcode=int(bcs[j]),
+                        start=int(out["start"][i]),
+                        length=int(out["flen"][i]),
+                        mapq=int(out["mapq"][i]),
+                        direction=int(out["dir"][i]),
+                        is_unique=int(out["uniq"][i]), num_dups=1,
+                        positive_alignment_length=int(out["posalen"][i]),
+                        negative_alignment_length=int(out["negalen"][i]),
+                        has_barcode=True)
+                    emit(int(rid_a[i]), rec)
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -1894,51 +1860,53 @@ class MappingPipeline:
         from .mapping.records import PairedPafRecord, clip_mapq
 
         cfg = self.cfg
-        if batch_bc is not None:
-            reads1, reads2, barcodes, sel = \
-                self._native_barcode_prefilter(batch1, batch2, batch_bc)
-            base_read_id = 0
-        else:
-            reads1 = [bytes(r.seq) for r in batch1]
-            reads2 = [bytes(r.seq) for r in batch2]
-            barcodes = None
-            sel = list(range(len(batch1)))
-            base_read_id = batch1[0].read_id if batch1 else 0
+        with tracing.span("records.pack"):
+            if batch_bc is not None:
+                reads1, reads2, barcodes, sel = \
+                    self._native_barcode_prefilter(batch1, batch2, batch_bc)
+                base_read_id = 0
+            else:
+                reads1 = [bytes(r.seq) for r in batch1]
+                reads2 = [bytes(r.seq) for r in batch2]
+                barcodes = None
+                sel = list(range(len(batch1)))
+                base_read_id = batch1[0].read_id if batch1 else 0
         if not reads1:
             return
         out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
                                                   base_read_id, threshold,
                                                   want_info=True)
-        if batch_bc is not None:
-            self._native_barcode_cachehits(engine, out, len(reads1),
-                                           barcodes, flags=info.flags)
-        tl1, tl2 = info.tl1, info.tl2
-        rid_a = out["rid"]
-        o_read_id = out["read_id"].tolist()
-        o_rid = rid_a.tolist()
-        o_start = out["start"].tolist()
-        o_mapq = out["mapq"].tolist()
-        o_dir, o_uniq = out["dir"].tolist(), out["uniq"].tolist()
-        o_pal = out["posalen"].tolist()
-        o_nal = out["negalen"].tolist()
-        o_flen = out["flen"].tolist()
-        for i in range(len(rid_a)):
-            j = o_read_id[i] - base_read_id
-            bj = sel[j]
-            mapq = o_mapq[i]
-            l1 = int(tl1[j]) if tl1 is not None else len(reads1[j])
-            l2 = int(tl2[j]) if tl2 is not None else len(reads2[j])
-            emit(o_rid[i], PairedPafRecord(
-                read_id=int(batch1[bj].read_id),
-                read1_name=batch1[bj].name, read2_name=batch2[bj].name,
-                read1_length=l1, read2_length=l2,
-                start=o_start[i],
-                negative_alignment_length=o_pal[i],
-                length=o_nal[i],
-                positive_alignment_length=o_flen[i],
-                mapq=mapq, mapq1=clip_mapq(mapq), mapq2=clip_mapq(mapq),
-                direction=o_dir[i],
-                is_unique=o_uniq[i], num_dups=1))
+        with tracing.span("records.emit"):
+            if batch_bc is not None:
+                self._native_barcode_cachehits(engine, out, len(reads1),
+                                               barcodes, flags=info.flags)
+            tl1, tl2 = info.tl1, info.tl2
+            rid_a = out["rid"]
+            o_read_id = out["read_id"].tolist()
+            o_rid = rid_a.tolist()
+            o_start = out["start"].tolist()
+            o_mapq = out["mapq"].tolist()
+            o_dir, o_uniq = out["dir"].tolist(), out["uniq"].tolist()
+            o_pal = out["posalen"].tolist()
+            o_nal = out["negalen"].tolist()
+            o_flen = out["flen"].tolist()
+            for i in range(len(rid_a)):
+                j = o_read_id[i] - base_read_id
+                bj = sel[j]
+                mapq = o_mapq[i]
+                l1 = int(tl1[j]) if tl1 is not None else len(reads1[j])
+                l2 = int(tl2[j]) if tl2 is not None else len(reads2[j])
+                emit(o_rid[i], PairedPafRecord(
+                    read_id=int(batch1[bj].read_id),
+                    read1_name=batch1[bj].name, read2_name=batch2[bj].name,
+                    read1_length=l1, read2_length=l2,
+                    start=o_start[i],
+                    negative_alignment_length=o_pal[i],
+                    length=o_nal[i],
+                    positive_alignment_length=o_flen[i],
+                    mapq=mapq, mapq1=clip_mapq(mapq), mapq2=clip_mapq(mapq),
+                    direction=o_dir[i],
+                    is_unique=o_uniq[i], num_dups=1))
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -1961,98 +1929,100 @@ class MappingPipeline:
             engine.set_sam_params()
             engine._sam_params_set = True
 
-        if batch_bc is not None:
-            reads1, reads2, barcodes, sel = \
-                self._native_barcode_prefilter(batch1, batch2, batch_bc)
-            base_read_id = 0
-        else:
-            reads1 = [bytes(r.seq) for r in batch1]
-            reads2 = [bytes(r.seq) for r in batch2]
-            barcodes = None
-            sel = list(range(len(batch1)))
-            base_read_id = batch1[0].read_id if batch1 else 0
+        with tracing.span("records.pack"):
+            if batch_bc is not None:
+                reads1, reads2, barcodes, sel = \
+                    self._native_barcode_prefilter(batch1, batch2, batch_bc)
+                base_read_id = 0
+            else:
+                reads1 = [bytes(r.seq) for r in batch1]
+                reads2 = [bytes(r.seq) for r in batch2]
+                barcodes = None
+                sel = list(range(len(batch1)))
+                base_read_id = batch1[0].read_id if batch1 else 0
         if not reads1:
             return
         out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
                                                   base_read_id, threshold,
                                                   full=True, sam=True,
                                                   want_info=True)
-        if batch_bc is not None:
-            self._native_barcode_cachehits(engine, out, len(reads1),
-                                           barcodes, flags=info.flags)
-        tl1, tl2 = info.tl1, info.tl2
-        cig_buf, cig_off, md_buf, md_off, nm_arr = info.aux
-        rid_a = out["rid"]
-        # row-wise python lists beat per-element numpy scalar conversion
-        # in this per-record loop
-        o_read_id = out["read_id"].tolist()
-        o_dir = out["dir"].tolist()
-        o_rid = rid_a.tolist()
-        o_rs1, o_re1 = out["rs1"].tolist(), out["re1"].tolist()
-        o_rs2, o_re2 = out["rs2"].tolist(), out["re2"].tolist()
-        o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
-        cig_list = cig_buf.tolist()
-        cig_off_l = cig_off.tolist()
-        nm_list = nm_arr.tolist()
-        prev_read_id = None
-        occurrence = 0
-        for i in range(len(rid_a)):
-            j = o_read_id[i] - base_read_id
-            bj = sel[j]
-            read_id = int(batch1[bj].read_id)
-            occurrence = occurrence + 1 if read_id == prev_read_id else 0
-            prev_read_id = read_id
-            first_negative = o_dir[i] == 0
-            rid = o_rid[i]
-            rs1, re1 = o_rs1[i], o_re1[i]
-            rs2, re2 = o_rs2[i], o_re2[i]
-            mapq = o_mapq[i]
-            uniq = o_uniq[i]
-            barcode = int(barcodes[j]) if barcodes is not None else 0
-            tlen = (re1 - rs2 + 1) if first_negative else (re2 - rs1 + 1)
-            flag1, flag2 = 3, 3
-            if first_negative:
-                flag1 |= 0x10
-                flag2 |= 0x20
-            else:
-                flag1 |= 0x20
-                flag2 |= 0x10
-            flag1 |= 0x40
-            flag2 |= 0x80
-            if occurrence >= 1:
-                flag1 |= 0x100
-                flag2 |= 0x100
-            for (end, rec, flagv, pos, mpos, neg, tl) in (
-                    (0, batch1[bj], flag1, rs1, rs2, first_negative,
-                     int(tl1[j]) if tl1 is not None else None),
-                    (1, batch2[bj], flag2, rs2, rs1, not first_negative,
-                     int(tl2[j]) if tl2 is not None else None)):
-                k = 2 * i + end
-                cigar = cig_list[cig_off_l[k]:cig_off_l[k + 1]]
-                md = md_buf[md_off[k]:md_off[k + 1]]
-                full = bytes(rec.seq)
-                qual = bytes(rec.qual or b"")
-                if tl is not None and tl < len(full):
-                    # adapter-trimmed: the record carries the trimmed prefix
-                    # (TrimSequenceAt shrinks seq+qual in place)
-                    full = full[:tl]
-                    qual = qual[:tl]
-                if neg:
-                    seq = reverse_complement_ascii(full)
-                    qual = qual[::-1]
+        with tracing.span("records.emit"):
+            if batch_bc is not None:
+                self._native_barcode_cachehits(engine, out, len(reads1),
+                                               barcodes, flags=info.flags)
+            tl1, tl2 = info.tl1, info.tl2
+            cig_buf, cig_off, md_buf, md_off, nm_arr = info.aux
+            rid_a = out["rid"]
+            # row-wise python lists beat per-element numpy scalar conversion
+            # in this per-record loop
+            o_read_id = out["read_id"].tolist()
+            o_dir = out["dir"].tolist()
+            o_rid = rid_a.tolist()
+            o_rs1, o_re1 = out["rs1"].tolist(), out["re1"].tolist()
+            o_rs2, o_re2 = out["rs2"].tolist(), out["re2"].tolist()
+            o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
+            cig_list = cig_buf.tolist()
+            cig_off_l = cig_off.tolist()
+            nm_list = nm_arr.tolist()
+            prev_read_id = None
+            occurrence = 0
+            for i in range(len(rid_a)):
+                j = o_read_id[i] - base_read_id
+                bj = sel[j]
+                read_id = int(batch1[bj].read_id)
+                occurrence = occurrence + 1 if read_id == prev_read_id else 0
+                prev_read_id = read_id
+                first_negative = o_dir[i] == 0
+                rid = o_rid[i]
+                rs1, re1 = o_rs1[i], o_re1[i]
+                rs2, re2 = o_rs2[i], o_re2[i]
+                mapq = o_mapq[i]
+                uniq = o_uniq[i]
+                barcode = int(barcodes[j]) if barcodes is not None else 0
+                tlen = (re1 - rs2 + 1) if first_negative else (re2 - rs1 + 1)
+                flag1, flag2 = 3, 3
+                if first_negative:
+                    flag1 |= 0x10
+                    flag2 |= 0x20
                 else:
-                    seq = full
-                ncons = sequence_length_from_cigar(cigar)
-                if ncons != len(seq):
-                    seq, qual = seq[:ncons], qual[:ncons]
-                strand_bit = 0 if neg else 1
-                emit(rid, SamRecord(
-                    read_id=read_id, read_name=rec.name, barcode=barcode,
-                    num_dups=1, pos=pos, rid=rid, mpos=mpos, mrid=rid,
-                    tlen=tlen if strand_bit else -tlen, flag=flagv,
-                    direction=strand_bit, is_unique=uniq, mapq=mapq,
-                    NM=nm_list[k], cigar=cigar, MD=md,
-                    sequence=seq, qual=qual))
+                    flag1 |= 0x20
+                    flag2 |= 0x10
+                flag1 |= 0x40
+                flag2 |= 0x80
+                if occurrence >= 1:
+                    flag1 |= 0x100
+                    flag2 |= 0x100
+                for (end, rec, flagv, pos, mpos, neg, tl) in (
+                        (0, batch1[bj], flag1, rs1, rs2, first_negative,
+                         int(tl1[j]) if tl1 is not None else None),
+                        (1, batch2[bj], flag2, rs2, rs1, not first_negative,
+                         int(tl2[j]) if tl2 is not None else None)):
+                    k = 2 * i + end
+                    cigar = cig_list[cig_off_l[k]:cig_off_l[k + 1]]
+                    md = md_buf[md_off[k]:md_off[k + 1]]
+                    full = bytes(rec.seq)
+                    qual = bytes(rec.qual or b"")
+                    if tl is not None and tl < len(full):
+                        # adapter-trimmed: the record carries the trimmed
+                        # prefix (TrimSequenceAt shrinks seq+qual in place)
+                        full = full[:tl]
+                        qual = qual[:tl]
+                    if neg:
+                        seq = reverse_complement_ascii(full)
+                        qual = qual[::-1]
+                    else:
+                        seq = full
+                    ncons = sequence_length_from_cigar(cigar)
+                    if ncons != len(seq):
+                        seq, qual = seq[:ncons], qual[:ncons]
+                    strand_bit = 0 if neg else 1
+                    emit(rid, SamRecord(
+                        read_id=read_id, read_name=rec.name, barcode=barcode,
+                        num_dups=1, pos=pos, rid=rid, mpos=mpos, mrid=rid,
+                        tlen=tlen if strand_bit else -tlen, flag=flagv,
+                        direction=strand_bit, is_unique=uniq, mapq=mapq,
+                        NM=nm_list[k], cigar=cigar, MD=md,
+                        sequence=seq, qual=qual))
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -2072,57 +2042,59 @@ class MappingPipeline:
             engine.set_split_mode()
             engine._split_mode_set = True
 
-        if batch_bc is not None:
-            reads1, reads2, barcodes, sel = \
-                self._native_barcode_prefilter(batch1, batch2, batch_bc)
-            base_read_id = 0
-        else:
-            reads1 = [bytes(r.seq) for r in batch1]
-            reads2 = [bytes(r.seq) for r in batch2]
-            barcodes = None
-            sel = list(range(len(batch1)))
-            base_read_id = batch1[0].read_id if batch1 else 0
+        with tracing.span("records.pack"):
+            if batch_bc is not None:
+                reads1, reads2, barcodes, sel = \
+                    self._native_barcode_prefilter(batch1, batch2, batch_bc)
+                base_read_id = 0
+            else:
+                reads1 = [bytes(r.seq) for r in batch1]
+                reads2 = [bytes(r.seq) for r in batch2]
+                barcodes = None
+                sel = list(range(len(batch1)))
+                base_read_id = batch1[0].read_id if batch1 else 0
         if not reads1:
             return
         out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
                                                   base_read_id, threshold,
                                                   full=True,
                                                   want_info=True)
-        if batch_bc is not None:
-            self._native_barcode_cachehits(engine, out, len(reads1),
-                                           barcodes, flags=info.flags)
-        rank = self.pairs_custom_rid_rank
-        rid_a = out["rid"]
-        o_read_id = out["read_id"].tolist()
-        o_rid, o_rid2 = rid_a.tolist(), out["rid2"].tolist()
-        o_dir, o_dir2 = out["dir"].tolist(), out["dir2"].tolist()
-        o_rs1, o_re1 = out["rs1"].tolist(), out["re1"].tolist()
-        o_rs2, o_re2 = out["rs2"].tolist(), out["re2"].tolist()
-        o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
-        for i in range(len(rid_a)):
-            j = o_read_id[i] - base_read_id
-            bj = sel[j]
-            read_id = int(batch1[bj].read_id)
-            rid = o_rid[i]
-            first_negative = o_dir[i] == 0
-            second_negative = o_dir2[i] == 0
-            strand1 = 0 if first_negative else 1
-            strand2 = 0 if second_negative else 1
-            pos1 = o_re1[i] if first_negative else o_rs1[i]
-            pos2 = o_re2[i] if second_negative else o_rs2[i]
-            rid1, rid2 = rid, o_rid2[i]
-            r1_rank = rank[rid1] if rank else rid1
-            r2_rank = rank[rid2] if rank else rid2
-            if not (r1_rank < r2_rank or (rid1 == rid2 and pos1 < pos2)):
-                pos1, pos2 = pos2, pos1
-                strand1, strand2 = strand2, strand1
-            emit(rid1, PairsRecord(
-                read_id=read_id, read_name=batch1[bj].name,
-                barcode=(int(barcodes[j]) if barcodes is not None else 0),
-                rid1=rid1, rid2=rid2, pos1=pos1, pos2=pos2,
-                strand1=strand1, strand2=strand2,
-                mapq=o_mapq[i],
-                is_unique=o_uniq[i], num_dups=1))
+        with tracing.span("records.emit"):
+            if batch_bc is not None:
+                self._native_barcode_cachehits(engine, out, len(reads1),
+                                               barcodes, flags=info.flags)
+            rank = self.pairs_custom_rid_rank
+            rid_a = out["rid"]
+            o_read_id = out["read_id"].tolist()
+            o_rid, o_rid2 = rid_a.tolist(), out["rid2"].tolist()
+            o_dir, o_dir2 = out["dir"].tolist(), out["dir2"].tolist()
+            o_rs1, o_re1 = out["rs1"].tolist(), out["re1"].tolist()
+            o_rs2, o_re2 = out["rs2"].tolist(), out["re2"].tolist()
+            o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
+            for i in range(len(rid_a)):
+                j = o_read_id[i] - base_read_id
+                bj = sel[j]
+                read_id = int(batch1[bj].read_id)
+                rid = o_rid[i]
+                first_negative = o_dir[i] == 0
+                second_negative = o_dir2[i] == 0
+                strand1 = 0 if first_negative else 1
+                strand2 = 0 if second_negative else 1
+                pos1 = o_re1[i] if first_negative else o_rs1[i]
+                pos2 = o_re2[i] if second_negative else o_rs2[i]
+                rid1, rid2 = rid, o_rid2[i]
+                r1_rank = rank[rid1] if rank else rid1
+                r2_rank = rank[rid2] if rank else rid2
+                if not (r1_rank < r2_rank or (rid1 == rid2 and pos1 < pos2)):
+                    pos1, pos2 = pos2, pos1
+                    strand1, strand2 = strand2, strand1
+                emit(rid1, PairsRecord(
+                    read_id=read_id, read_name=batch1[bj].name,
+                    barcode=(int(barcodes[j]) if barcodes is not None else 0),
+                    rid1=rid1, rid2=rid2, pos1=pos1, pos2=pos2,
+                    strand1=strand1, strand2=strand2,
+                    mapq=o_mapq[i],
+                    is_unique=o_uniq[i], num_dups=1))
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -2171,12 +2143,16 @@ class MappingPipeline:
                     n1, self.num_reads, False, 0.01)
                 self._debug_threshold(threshold)
                 newp = None
+                cid = tracing.chunk_ids(1)
                 if cfg.use_device and ci % P == 0:
                     newp = self._se_device_submit(engine, b1, o1, n1,
-                                                  base_read_id)
+                                                  base_read_id, cid)
                 if newp is None:
-                    account(engine.map_single_raw(b1, o1, n1, base_read_id,
-                                                  threshold))
+                    with tracing.span("native.cpu_map", cid):
+                        account(engine.map_single_raw(b1, o1, n1,
+                                                      base_read_id,
+                                                      threshold))
+                    _count_cpu_chunk(n1)
                 else:
                     if pending is not None:
                         account(self._se_device_resolve(engine, pending))
@@ -2192,12 +2168,14 @@ class MappingPipeline:
 
         keys = ("rid", "read_id", "start", "flen", "mapq", "dir", "uniq",
                 "posalen", "negalen")
-        arrays = {key: (np.concatenate([c[key] for c in chunks])
-                        if chunks else np.empty(0))
-                  for key in keys}
-        written, uni, multi = native_postprocess_write(
-            cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
-            dedup=cfg.remove_pcr_duplicates, se_mode=True)
+        with tracing.span("output.concat"):
+            arrays = {key: (np.concatenate([c[key] for c in chunks])
+                            if chunks else np.empty(0))
+                      for key in keys}
+        with tracing.span("output.native"):
+            written, uni, multi = native_postprocess_write(
+                cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
+                dedup=cfg.remove_pcr_duplicates, se_mode=True)
         if cfg.remove_pcr_duplicates:
             log(f"{uni + multi} mappings left after deduplication.")
         log(f"# uni-mappings: {uni}, # multi-mappings: {multi}, "
@@ -2206,7 +2184,7 @@ class MappingPipeline:
         self._debug_cache_stats(engine, paired=False)
 
     def _se_device_submit(self, engine, b1, o1, n1: int,
-                          base_read_id: int):
+                          base_read_id: int, cid: int):
         """Dispatch one single-end chunk to the device seeder (same packed
         program as the paired hybrid); returns None when the chunk is
         ineligible (CPU maps it instead)."""
@@ -2230,61 +2208,77 @@ class MappingPipeline:
         chunk = max(n1, min(2 * cfg.device_batch_size, cfg.read_batch_size))
         W = (L + 15) // 16 + (L + 31) // 32
         need = chunk * W
-        buf = self._next_pack_buf(need)
-        rc = engine.lib.cn_pack_reads_se(b1, o1, n1, L,
-                                         buf.ctypes.data_as(_ct.c_void_p))
-        if rc != 0:
-            return None
-        buf2d = buf[:need].reshape(chunk, W)
-        if n1 < chunk:
-            buf2d[n1:] = 0xFFFFFFFF
-        handle = self._device_seeder.submit_packed(buf2d, chunk, L)
-        raw1 = np.ctypeslib.as_array(
-            _ct.cast(b1, _ct.POINTER(_ct.c_uint8)), shape=(int(offs1[n1]),))
-        saved = (raw1.copy(), offs1.copy())
-        return (handle, saved, n1, base_read_id)
+        with tracing.span("seeder.pack", cid):
+            buf = self._next_pack_buf(need)
+            rc = engine.lib.cn_pack_reads_se(
+                b1, o1, n1, L, buf.ctypes.data_as(_ct.c_void_p))
+            if rc != 0:
+                return None
+            buf2d = buf[:need].reshape(chunk, W)
+            if n1 < chunk:
+                buf2d[n1:] = 0xFFFFFFFF
+        with tracing.span("seeder.submit", cid):
+            handle = self._device_seeder.submit_packed(buf2d, chunk, L)
+        with tracing.span("hybrid.copy", cid):
+            raw1 = np.ctypeslib.as_array(
+                _ct.cast(b1, _ct.POINTER(_ct.c_uint8)),
+                shape=(int(offs1[n1]),))
+            saved = (raw1.copy(), offs1.copy())
+        return (handle, saved, n1, base_read_id, cid)
 
     def _se_device_resolve(self, engine, pending):
         """Blocks on a single-end device chunk and runs the native
         finish (fallback-flagged reads re-run the exact path inside)."""
         import ctypes as _ct
 
-        handle, saved, n1, base = pending
+        handle, saved, n1, base, cid = pending
         raw1, offs1 = saved
-        meta, cand_pos, cand_meta, overflow = \
-            self._device_seeder.resolve(handle)
+        # this flow resolves on the main thread: hybrid.wait holds the
+        # unpack of the download as well as the wait
+        with tracing.span("hybrid.wait", cid):
+            meta, cand_pos, cand_meta, overflow = \
+                self._device_seeder.resolve(handle)
         rp = _ct.cast(raw1.ctypes.data, _ct.c_char_p)
         op = offs1.ctypes.data_as(_ct.c_void_p)
-        if overflow:
-            return engine.map_single_raw(rp, op, n1, base, 0)
-        return engine.map_single_dev_seeded(rp, op, n1, base, meta,
-                                            cand_pos, cand_meta)
+        with tracing.span("native.finish", cid):
+            if overflow:
+                out_stats = engine.map_single_raw(rp, op, n1, base, 0)
+            else:
+                out_stats = engine.map_single_dev_seeded(
+                    rp, op, n1, base, meta, cand_pos, cand_meta)
+        tracing.count("chunks.dev")
+        return out_stats
 
     def _map_batch_native_se(self, engine, batch, threshold, emit) -> None:
         """Map one single-end batch through the C++ host engine."""
         from .mapping.records import SEBedRecord
         from .summary import CACHEHIT, TOTAL
 
-        reads = [bytes(r.seq) for r in batch]
-        orig_ids = np.asarray([r.read_id for r in batch], dtype=np.uint32)
-        n = len(reads)
-        r_bytes = b"".join(reads)
-        r_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads], out=r_off[1:])
+        with tracing.span("records.pack"):
+            reads = [bytes(r.seq) for r in batch]
+            orig_ids = np.asarray([r.read_id for r in batch],
+                                  dtype=np.uint32)
+            n = len(reads)
+            r_bytes = b"".join(reads)
+            r_off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(r) for r in reads], out=r_off[1:])
         out, stats = self._map_single_hybrid(engine, r_bytes, r_off, n, 0,
                                              threshold)
-        rid_a = out["rid"]
-        if self._array_spill_ok():
-            self._stash_bed_rows(rid_a, out, orig_ids, None, se=True)
-        else:
-            for i in range(len(rid_a)):
-                rec = SEBedRecord(
-                    read_id=int(orig_ids[int(out["read_id"][i])]),
-                    barcode=0,
-                    start=int(out["start"][i]), length=int(out["flen"][i]),
-                    mapq=int(out["mapq"][i]), direction=int(out["dir"][i]),
-                    is_unique=int(out["uniq"][i]), num_dups=1)
-                emit(int(rid_a[i]), rec)
+        with tracing.span("records.emit"):
+            rid_a = out["rid"]
+            if self._array_spill_ok():
+                self._stash_bed_rows(rid_a, out, orig_ids, None, se=True)
+            else:
+                for i in range(len(rid_a)):
+                    rec = SEBedRecord(
+                        read_id=int(orig_ids[int(out["read_id"][i])]),
+                        barcode=0,
+                        start=int(out["start"][i]),
+                        length=int(out["flen"][i]),
+                        mapq=int(out["mapq"][i]),
+                        direction=int(out["dir"][i]),
+                        is_unique=int(out["uniq"][i]), num_dups=1)
+                    emit(int(rid_a[i]), rec)
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -2304,44 +2298,49 @@ class MappingPipeline:
         from .mapping.records import SEBedRecord
 
         cfg = self.cfg
-        reads, barcodes, orig_ids = [], [], []
-        nonwhitelist_count = 0
-        for bi, rec in enumerate(batch):
-            whitelisted, barcode_key = self._process_barcode(batch_bc[bi])
-            if not (whitelisted or cfg.output_mappings_not_in_whitelist):
-                nonwhitelist_count += 1
-                continue
-            reads.append(bytes(rec.seq))
-            barcodes.append(barcode_key)
-            orig_ids.append(rec.read_id)
-        if self.summary is not None:
-            from .summary import TOTAL
-            for key in barcodes:
-                self.summary.update_count(key, TOTAL, 1)
-            self.summary.update_nonwhitelist(TOTAL, nonwhitelist_count)
-        if not reads:
-            return
-        n = len(reads)
-        r_bytes = b"".join(reads)
-        r_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads], out=r_off[1:])
+        with tracing.span("records.pack"):
+            reads, barcodes, orig_ids = [], [], []
+            nonwhitelist_count = 0
+            for bi, rec in enumerate(batch):
+                whitelisted, barcode_key = self._process_barcode(
+                    batch_bc[bi])
+                if not (whitelisted or cfg.output_mappings_not_in_whitelist):
+                    nonwhitelist_count += 1
+                    continue
+                reads.append(bytes(rec.seq))
+                barcodes.append(barcode_key)
+                orig_ids.append(rec.read_id)
+            if self.summary is not None:
+                from .summary import TOTAL
+                for key in barcodes:
+                    self.summary.update_count(key, TOTAL, 1)
+                self.summary.update_nonwhitelist(TOTAL, nonwhitelist_count)
+            if not reads:
+                return
+            n = len(reads)
+            r_bytes = b"".join(reads)
+            r_off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(r) for r in reads], out=r_off[1:])
         out, stats = self._map_single_hybrid(engine, r_bytes, r_off, n, 0,
                                              threshold)
-        rid_a = out["rid"]
-        if self._array_spill_ok():
-            self._stash_bed_rows(rid_a, out,
-                                 np.asarray(orig_ids, dtype=np.uint32),
-                                 np.asarray(barcodes, dtype=np.uint64),
-                                 se=True)
-        else:
-            for i in range(len(rid_a)):
-                j = int(out["read_id"][i])
-                emit(int(rid_a[i]), SEBedRecord(
-                    read_id=int(orig_ids[j]), barcode=int(barcodes[j]),
-                    start=int(out["start"][i]), length=int(out["flen"][i]),
-                    mapq=int(out["mapq"][i]), direction=int(out["dir"][i]),
-                    is_unique=int(out["uniq"][i]), num_dups=1,
-                    has_barcode=True))
+        with tracing.span("records.emit"):
+            rid_a = out["rid"]
+            if self._array_spill_ok():
+                self._stash_bed_rows(rid_a, out,
+                                     np.asarray(orig_ids, dtype=np.uint32),
+                                     np.asarray(barcodes, dtype=np.uint64),
+                                     se=True)
+            else:
+                for i in range(len(rid_a)):
+                    j = int(out["read_id"][i])
+                    emit(int(rid_a[i]), SEBedRecord(
+                        read_id=int(orig_ids[j]), barcode=int(barcodes[j]),
+                        start=int(out["start"][i]),
+                        length=int(out["flen"][i]),
+                        mapq=int(out["mapq"][i]),
+                        direction=int(out["dir"][i]),
+                        is_unique=int(out["uniq"][i]), num_dups=1,
+                        has_barcode=True))
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -2389,11 +2388,12 @@ class MappingPipeline:
 
         base_read_id = 0 if batch_bc is not None else (
             batch[0].read_id if batch else 0)
-        reads = [bytes(r.seq) for r in batch]
-        n = len(reads)
-        r_bytes = b"".join(reads)
-        r_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads], out=r_off[1:])
+        with tracing.span("records.pack"):
+            reads = [bytes(r.seq) for r in batch]
+            n = len(reads)
+            r_bytes = b"".join(reads)
+            r_off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(r) for r in reads], out=r_off[1:])
         if sam:
             out, stats, aux = self._map_single_hybrid(
                 engine, r_bytes, r_off, n, base_read_id, threshold,
@@ -2402,53 +2402,54 @@ class MappingPipeline:
             out, stats = self._map_single_hybrid(
                 engine, r_bytes, r_off, n, base_read_id, threshold)
             aux = None
-        if self.summary is not None and batch_bc is None \
-                and cfg.is_bulk_data:
-            from .summary import CACHEHIT, TOTAL
-            self.summary.update_count(0, TOTAL, n)
-            self.summary.update_count(0, CACHEHIT, int(stats[4]))
-        rid_a = out["rid"]
-        prev_read_id = None
-        occurrence = 0
-        for i in range(len(rid_a)):
-            j = int(out["read_id"][i]) - base_read_id
-            rec = batch[j]
-            read_id = int(rec.read_id)
-            occurrence = occurrence + 1 if read_id == prev_read_id else 0
-            prev_read_id = read_id
-            neg = int(out["dir"][i]) == 0
-            mapq = int(out["mapq"][i])
-            barcode = int(barcodes[j]) if barcodes is not None else 0
-            if not sam:
-                emit(int(rid_a[i]), PafRecord(
-                    read_id=read_id, read_name=rec.name,
-                    read_length=len(reads[j]), start=int(out["start"][i]),
-                    length=int(out["flen"][i]), mapq=clip_mapq(mapq),
-                    direction=int(out["dir"][i]),
-                    is_unique=int(out["uniq"][i]), num_dups=1))
-                continue
-            cig_buf, cig_off, md_buf, md_off, nm_arr = aux
-            cigar = [int(c) for c in cig_buf[cig_off[i]:cig_off[i + 1]]]
-            md = md_buf[md_off[i]:md_off[i + 1]]
-            seq = rec.negative() if neg else bytes(reads[j])
-            qual = bytes(rec.qual or b"")
-            if neg and qual:
-                qual = qual[::-1]
-            ncons = sequence_length_from_cigar(cigar)
-            if ncons != len(seq):
-                seq, qual = seq[:ncons], qual[:ncons]
-            flag = 0x10 if neg else 0
-            if occurrence >= 1:
-                flag |= 0x100
-            emit(int(rid_a[i]), SamRecord(
-                read_id=read_id, read_name=rec.name, barcode=barcode,
-                num_dups=1,
-                pos=int(out["start"][i]), rid=int(rid_a[i]), mpos=0,
-                mrid=-1, tlen=0, flag=flag,
-                direction=0 if neg else 1,
-                is_unique=int(out["uniq"][i]), mapq=mapq,
-                NM=int(nm_arr[i]), cigar=cigar, MD=md, sequence=seq,
-                qual=qual))
+        with tracing.span("records.emit"):
+            if self.summary is not None and batch_bc is None \
+                    and cfg.is_bulk_data:
+                from .summary import CACHEHIT, TOTAL
+                self.summary.update_count(0, TOTAL, n)
+                self.summary.update_count(0, CACHEHIT, int(stats[4]))
+            rid_a = out["rid"]
+            prev_read_id = None
+            occurrence = 0
+            for i in range(len(rid_a)):
+                j = int(out["read_id"][i]) - base_read_id
+                rec = batch[j]
+                read_id = int(rec.read_id)
+                occurrence = occurrence + 1 if read_id == prev_read_id else 0
+                prev_read_id = read_id
+                neg = int(out["dir"][i]) == 0
+                mapq = int(out["mapq"][i])
+                barcode = int(barcodes[j]) if barcodes is not None else 0
+                if not sam:
+                    emit(int(rid_a[i]), PafRecord(
+                        read_id=read_id, read_name=rec.name,
+                        read_length=len(reads[j]), start=int(out["start"][i]),
+                        length=int(out["flen"][i]), mapq=clip_mapq(mapq),
+                        direction=int(out["dir"][i]),
+                        is_unique=int(out["uniq"][i]), num_dups=1))
+                    continue
+                cig_buf, cig_off, md_buf, md_off, nm_arr = aux
+                cigar = [int(c) for c in cig_buf[cig_off[i]:cig_off[i + 1]]]
+                md = md_buf[md_off[i]:md_off[i + 1]]
+                seq = rec.negative() if neg else bytes(reads[j])
+                qual = bytes(rec.qual or b"")
+                if neg and qual:
+                    qual = qual[::-1]
+                ncons = sequence_length_from_cigar(cigar)
+                if ncons != len(seq):
+                    seq, qual = seq[:ncons], qual[:ncons]
+                flag = 0x10 if neg else 0
+                if occurrence >= 1:
+                    flag |= 0x100
+                emit(int(rid_a[i]), SamRecord(
+                    read_id=read_id, read_name=rec.name, barcode=barcode,
+                    num_dups=1,
+                    pos=int(out["start"][i]), rid=int(rid_a[i]), mpos=0,
+                    mrid=-1, tlen=0, flag=flag,
+                    direction=0 if neg else 1,
+                    is_unique=int(out["uniq"][i]), mapq=mapq,
+                    NM=int(nm_arr[i]), cigar=cigar, MD=md, sequence=seq,
+                    qual=qual))
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])
@@ -2484,27 +2485,34 @@ class MappingPipeline:
             if self.num_mappings_in_mem > 0 or not self.temp_shard_paths:
                 self._spill_now(None)
                 self.num_mappings_in_mem = 0
-            num_uni, num_multi, num_passing = merge_and_output_low_memory(
-                cfg, self.temp_shard_paths, writer, whitelist=self.whitelist,
-                summary=self.summary, engine=self._native_engine)
+            with tracing.span("lowmem.merge"):
+                num_uni, num_multi, num_passing = \
+                    merge_and_output_low_memory(
+                        cfg, self.temp_shard_paths, writer,
+                        whitelist=self.whitelist, summary=self.summary,
+                        engine=self._native_engine)
             log(f"# uni-mappings: {num_uni}, # multi-mappings: {num_multi}, "
                 f"total: {num_uni + num_multi}.")
             log(f"Number of output mappings (passed filters): {num_passing}")
             return
-        if cfg.tn5_shift:
-            n = apply_tn5_shift(self.mappings_on_refs)
-            log(f"# shifted mappings: {n}.")
-        if cfg.remove_pcr_duplicates:
-            n = remove_pcr_duplicates(self.mappings_on_refs)
-            log(f"{n} mappings left after deduplication.")
-        else:
-            sort_mappings(self.mappings_on_refs)
-        if cfg.allocate_multi_mappings:
-            allocate_multi_mappings(self.mappings_on_refs,
-                                    cfg.multi_mapping_allocation_distance,
-                                    cfg.multi_mapping_allocation_seed)
-            sort_mappings(self.mappings_on_refs)
-        writer.output_mappings(self.mappings_on_refs)
+        # output.sort holds the Tn5 shift and the dedup here: the dedup
+        # sorts as it goes
+        with tracing.span("output.sort"):
+            if cfg.tn5_shift:
+                n = apply_tn5_shift(self.mappings_on_refs)
+                log(f"# shifted mappings: {n}.")
+            if cfg.remove_pcr_duplicates:
+                n = remove_pcr_duplicates(self.mappings_on_refs)
+                log(f"{n} mappings left after deduplication.")
+            else:
+                sort_mappings(self.mappings_on_refs)
+            if cfg.allocate_multi_mappings:
+                allocate_multi_mappings(self.mappings_on_refs,
+                                        cfg.multi_mapping_allocation_distance,
+                                        cfg.multi_mapping_allocation_seed)
+                sort_mappings(self.mappings_on_refs)
+        with tracing.span("output.write"):
+            writer.output_mappings(self.mappings_on_refs)
         log(f"Number of output mappings (passed filters): "
             f"{writer.num_mappings_passing_filters}")
         if cfg.matrix_output_prefix:
