@@ -5,7 +5,7 @@
 
 Phases, in order (any failure exits non-zero before the last line):
 
-  kernels  builds the four CUDA kernels of csrc/ (one nvcc each, all at
+  kernels  builds the five CUDA kernels of csrc/ (one nvcc each, all at
            once), launches each on CUDA tensors at its path's shapes
            (seeded numpy inputs) and holds it against its plain torch
            version on the same tensors: exact equality, since every output
@@ -14,8 +14,11 @@ Phases, in order (any failure exits non-zero before the last line):
            path's two shapes (L = 100, e = 4, and the 5'-gap retry's
            L = 84), with planted junctions so that lanes stop early, and
            once more with texts equal to the patterns' diagonal, so that
-           no lane stops. For every kernel it also prints what bounds
-           it: ptxas' registers and shared memory, resident blocks per
+           no lane stops. Kernel E (the index probe) runs on 31.8M
+           uniform keys, a 141 Mb genome's index, and a chunk's 851,968
+           queries, beside torch searchsorted as the library yardstick.
+           For every kernel it also prints what bounds it: ptxas'
+           registers and shared memory, resident blocks per
            SM, the achieved GB/s, and a cold time (a 128 MiB write
            between launches evicts the 50 MB L2).
   path     the paired-end --device BED flow at realistic scale: simulates a
@@ -25,7 +28,9 @@ Phases, in order (any failure exits non-zero before the last line):
            main path's run, whose kernel launches are counted), device
            again with the seeder resident, host again. All four BED files
            must be byte-equal, at least one chunk must be seeded on the
-           device, and every kernel must launch in the main path's run.
+           device, and every kernel must launch in the main path's run:
+           kernel E once a chunk seeded, which the traced run's counter
+           seeder.probe_kernel must also count, as many as chunks.dev.
   hic      the Hi-C flow (--preset hic: e = 4, MAPQ 1, split alignment,
            pairs output, low-memory mode) on the same genome and index.
            hic_r1.fq / hic_r2.fq are the path's pairs with bases 60-99 of
@@ -35,8 +40,9 @@ Phases, in order (any failure exits non-zero before the last line):
            host-only, CUDA device seeding (the Hi-C path's run, launches
            counted from 0), device again with the seeder resident. The
            three .pairs files must be byte-equal and non-empty, a chunk
-           must be seeded on the device, and the minimizer, cluster and
-           drop-off kernels must each launch.
+           must be seeded on the device, the minimizer, cluster and
+           drop-off kernels must each launch, and kernel E once a chunk,
+           as the path phase checks it.
   batch    the batch engine (--engine batch) on the path's genome and
            index with the first 20,000 pairs (batch_r1.fq, batch_r2.fq),
            in turns: host, --device (kernel B's launches counted from 0),
@@ -60,10 +66,12 @@ Phases, in order (any failure exits non-zero before the last line):
            chunk on the card, each batch flow launch kernel B.
   chunk    one 16384-pair chunk of the path's data, and one of the Hi-C
            reads in split mode, seeded by the port on CUDA and by its
-           plain path on the CPU, with the merge-sort probe, the
-           bucketed one (CHROMAP_TPU_PROBE=bucket) and searchsorted
-           (=sortss): all six downloads must be byte-equal. Times and
-           profiles each probe's step, and times the probe alone.
+           plain path on the CPU, with the default probe (kernel E on
+           CUDA, the merged sort on the CPU), the bucketed one
+           (CHROMAP_TPU_PROBE=bucket) and searchsorted (=sortss): all six
+           downloads must be byte-equal. Times and profiles each probe's
+           step, and times the probe alone on the 141 Mb index: kernel E
+           must equal the merged sort.
   mesh     the data mesh (parallel/sharding.py, MeshSeeder) rehearsed as
            shards of the one card: sharded_myers over [cuda:0, cuda:0] at
            N = 65536 equal to kernel B's plain version; the chunk phase's
@@ -84,7 +92,7 @@ Phases, in order (any failure exits non-zero before the last line):
            mode and in split mode on the Hi-C reads, each stop's
            hand-written kernel launches checked against its stages, the
            full step's kernel time within 10% of the chunk phase's
-           profile and the probe stop within 20% of the probe alone;
+           profile and the probe stop within 20% of kernel E alone;
            full_time with the probe and cluster stops on the bench's set;
            primitives at the 141 Mb index's key count; bench_parity on
            the bench's 100k pairs (byte-equal BED files); weak_scaling at
@@ -118,11 +126,14 @@ REPLACES = {
     "myers": "chromap_tpu/ops/pallas_myers.py:39",
     "cluster_scan": "chromap_tpu/ops/device_seed.py:227",
     "myers_dropoff": "chromap_tpu/ops/pallas_myers.py:222",
+    # no Pallas kernel: the JAX program's merged-sort probe
+    "index_probe": "chromap_tpu/ops/device_seed.py:387",
 }
 KERNEL_SOURCES = (("dense_minimizer", "dense_minimizer.cu"),
                   ("myers", "myers.cu"),
                   ("cluster_scan", "cluster_scan.cu"),
-                  ("myers_dropoff", "myers_dropoff.cu"))
+                  ("myers_dropoff", "myers_dropoff.cu"),
+                  ("index_probe", "index_probe.cu"))
 
 
 def log(msg: str) -> None:
@@ -276,6 +287,36 @@ def cluster_cost(H: int, B: int):
     return nbytes, ops
 
 
+def kernel_inputs_probe(k: int, nk: int = 31_800_000):
+    """Kernel E's operands at the main path's shape, on the card: nk
+    sorted distinct uniform 2k-bit keys (a 141 Mb genome's index holds
+    31.8M), u64 offcnt words, its bucket table, and a chunk's 851,968
+    queries, 60% of them keys and 3% invalid (UMAX64)."""
+    import numpy as np
+    import torch
+    from chromap_tpu_torch.ops import device_seed as ds
+    g = torch.Generator(device="cuda").manual_seed(13)
+    keys = torch.unique(torch.randint(0, 1 << (2 * k), (nk + nk // 50,),
+                                      device="cuda", generator=g))[:nk]
+    offcnt = torch.randint(0, 1 << 62, (nk,), device="cuda", generator=g)
+    table = torch.from_numpy(ds.index_probe_table(
+        keys.cpu().numpy().view(np.uint64), k)).to("cuda")
+    M = ds.MZ_PER_READ * 32768
+    q = torch.randint(0, 1 << (2 * k), (M,), device="cuda", generator=g)
+    pick = torch.rand(M, device="cuda", generator=g)
+    q = torch.where(pick < 0.6, keys[torch.randint(
+        0, nk, (M,), device="cuda", generator=g)], q)
+    return keys, offcnt, torch.where(pick < 0.97, q, -1), table
+
+
+def probe_cost(q, offcnt):
+    """Kernel E's bytes: each query read and its off, cnt and found
+    written (21 B), and for each valid query its two bucket bounds, one
+    key and one offcnt word; no arithmetic to speak of."""
+    valid = int((q != -1).sum())
+    return (21 * q.numel() + valid * (16 + offcnt.element_size()), 0)
+
+
 def check_kernel(label: str, wrapper, kernel, plain, cost, note) -> dict:
     """Launch a kernel and its plain version on the same CUDA tensors,
     require equal outputs, time both, and log one line. `wrapper` holds
@@ -308,7 +349,8 @@ def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
     from chromap_tpu_torch.bench import bound, time_ms
     from chromap_tpu_torch.ops import _build
     blocks, threads, smem, tile = _build.occupancy(name, L)
-    unit = "reads a tile" if name == "dense_minimizer" else "ring stages"
+    unit = {"dense_minimizer": "reads a tile",
+            "index_probe": "(no tile)"}.get(name, "ring stages")
     cold_ms = time_ms(fn, between=flush.zero_)
     t_bytes = bound(r["nbytes"])[0]
     gbs = [r["nbytes"] / (t * 1e-3) / 1e9 for t in (r["ms"], cold_ms)]
@@ -323,7 +365,7 @@ def kernel_detail(label: str, name: str, L: int, r: dict, fn, flush) -> None:
 def phase_kernels(results: dict) -> None:
     import numpy as np
     import torch
-    from chromap_tpu_torch.bench import myers_cost
+    from chromap_tpu_torch.bench import myers_cost, time_ms
     from chromap_tpu_torch.ops import dense_minimizer as dm
     from chromap_tpu_torch.ops import device_seed as ds
     from chromap_tpu_torch.ops import myers as my
@@ -368,6 +410,28 @@ def phase_kernels(results: dict) -> None:
     kernel_detail(f"kernel C H+1={H + 1}", "cluster_scan", L,
                   results["cluster_scan"],
                   lambda: ds.cluster_scan(words, mm, req, e), flush)
+
+    # kernel E at the main path's shape: a 141 Mb genome's index (31.8M
+    # uniform keys, k = 17, u64 offcnt) and a chunk's 851,968 queries;
+    # its plain version is the merged sort, the library yardstick
+    # searchsorted and gather
+    keys, offcnt, q, table = kernel_inputs_probe(17)
+    results["index_probe"] = check_kernel(
+        f"kernel E index_probe M={q.numel()} NK={keys.numel()}",
+        ds.index_probe, lambda: ds.index_probe(keys, offcnt, q, table, 17),
+        lambda: ds.index_probe_plain(keys, offcnt, q, 17),
+        probe_cost(q, offcnt), lambda o: f"found={int(o[2].sum())}")
+    kernel_detail("kernel E", "index_probe", L, results["index_probe"],
+                  lambda: ds.index_probe(keys, offcnt, q, table, 17), flush)
+    valid = q != -1
+    results["index_probe"]["library_ms"] = time_ms(
+        lambda: ds._probe_gather(offcnt, *ds._probe_searchsorted(
+            keys, q, valid)))
+    log(f"kernel E yardstick: torch searchsorted and gather "
+        f"{results['index_probe']['library_ms']:.4f} ms; the merged sort "
+        f"(E's plain version) {results['index_probe']['plain_ms']:.4f} ms")
+    del keys, offcnt, q, table
+    torch.cuda.empty_cache()
 
     # kernel D at the Hi-C path's shapes: the primary pass over the whole
     # read, then the 5'-gap retry over rows g.. of the same planes
@@ -583,6 +647,34 @@ def map_once(use_device: bool, out: str, preset: str | None = None,
     return t1 - t0, t2 - t1, err.getvalue(), pipe
 
 
+def traced_counters(run, walls, logs, name) -> dict:
+    """Run one mapping `run()` with the tracer on; its (wall, log) go to
+    walls[name], logs[name]. Returns the pass's counters."""
+    from chromap_tpu_torch import tracing
+    os.environ[tracing.SWITCH] = "1"
+    try:
+        _, walls[name], logs[name], _ = run()
+    finally:
+        os.environ.pop(tracing.SWITCH, None)
+    return tracing.last_pass()["counters"]
+
+
+def check_probe_kernel(label: str, launches: dict, st: dict,
+                       counters: dict) -> None:
+    """Kernel E launched once for each chunk the seeder ran, and the
+    tracer counted each such chunk in seeder.probe_kernel, as many as
+    chunks.dev."""
+    log(f"{label}: kernel E launches {launches['index_probe']}, chunks "
+        f"seeded {st['chunks']}; counters seeder.probe_kernel "
+        f"{counters.get('seeder.probe_kernel')}, chunks.dev "
+        f"{counters.get('chunks.dev')}")
+    if not (launches["index_probe"] == st["chunks"]
+            == counters.get("seeder.probe_kernel")
+            == counters.get("chunks.dev")):
+        raise AssertionError(f"{label}: kernel E did not probe every "
+                             "device chunk once")
+
+
 def phase_path(results: dict, genome_core: int, pairs: int) -> None:
     import torch
     from chromap_tpu_torch.ops import dense_minimizer as dm
@@ -599,16 +691,20 @@ def phase_path(results: dict, genome_core: int, pairs: int) -> None:
     _, walls["host"], _, _ = map_once(False, paths["host"])
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    for fn in (dm.dense_minimizer, my.myers, ds.cluster_scan):
+    for fn in (dm.dense_minimizer, my.myers, ds.cluster_scan,
+               ds.index_probe):
         fn.launches = 0
-    _, walls["device"], logs["device"], _ = map_once(True, paths["device"])
+    counters = traced_counters(
+        lambda: map_once(True, paths["device"]), walls, logs, "device")
     launches = {"dense_minimizer": dm.dense_minimizer.launches,
                 "myers": my.myers.launches,
-                "cluster_scan": ds.cluster_scan.launches}
+                "cluster_scan": ds.cluster_scan.launches,
+                "index_probe": ds.index_probe.launches}
     peak = torch.cuda.max_memory_allocated()
     held = torch.cuda.memory_allocated() - mem0
     seeder = next(iter(ds._seeder_cache.values()))
     st = dict(seeder.stats)
+    check_probe_kernel("path", launches, st, counters)
     _, walls["device_warm"], _, _ = map_once(True, paths["device_warm"])
     _, walls["host_warm"], _, _ = map_once(False, paths["host_warm"])
     reads = 2 * pairs
@@ -677,26 +773,29 @@ def phase_hic(results: dict, pairs: int) -> None:
         finally:
             spent[0] += time.time() - t0
 
-    def run(name: str, use_device: bool) -> None:
+    def run(name: str, use_device: bool) -> dict:
         spent[0] = 0.0
         MappingPipeline._map_pairs_hybrid = timed
         try:
-            _, walls[name], logs[name], _ = map_once(
-                use_device, paths[name], "hic", "hic_r")
+            counters = traced_counters(
+                lambda: map_once(use_device, paths[name], "hic", "hic_r"),
+                walls, logs, name)
         finally:
             MappingPipeline._map_pairs_hybrid = hybrid
         mapper[name] = spent[0]
+        return counters
 
     run("host", False)
     torch.cuda.reset_peak_memory_stats()
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    run("device", True)
+    counters = run("device", True)
     launches = {n: fn.launches for n, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     seeder = next(iter(ds._seeder_cache.values()))
     st = dict(seeder.stats)
+    check_probe_kernel("hic", launches, st, counters)
     run("device_warm", True)
     reads = 2 * pairs
     log("hic: map wall (reads/s): " + " | ".join(
@@ -1103,10 +1202,12 @@ def phase_chunk(results: dict) -> None:
 
 def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                split: bool) -> dict:
-    """One 16384-pair chunk through the merge-sort step, the bucketed step
-    (CHROMAP_TPU_PROBE=bucket) and the searchsorted step (=sortss), each
-    on CUDA and on the CPU: all six downloads must be byte-equal. Returns
-    each probe's kernel ms under the profiler, and the probes alone."""
+    """One 16384-pair chunk through the default step (kernel E on CUDA,
+    the merged sort on the CPU), the bucketed step (CHROMAP_TPU_PROBE=
+    bucket) and the searchsorted step (=sortss), each on CUDA and on the
+    CPU: all six downloads must be byte-equal, and the default CUDA step
+    must launch kernel E once. Returns each probe's kernel ms under the
+    profiler, and the probes alone."""
     import numpy as np
     import torch
     from chromap_tpu_torch.ops import device_seed as ds
@@ -1115,7 +1216,8 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     B, L = codes.shape
     rw = ds._pack_reads(codes)
     outs, steps, kept = {}, {}, {}
-    for probe, mode in (("merge-sort", None), ("bucketed", "bucket"),
+    e_table = None
+    for probe, mode in (("default", None), ("bucketed", "bucket"),
                         ("searchsorted", "sortss")):
         if mode is not None:
             os.environ["CHROMAP_TPU_PROBE"] = mode
@@ -1124,16 +1226,28 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                 seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
                                          device=dev, split=split)
                 t0 = time.time()
+                n0 = ds.index_probe.launches
                 h = seeder.submit_packed(rw, B, L)
                 r = seeder.resolve(h)
                 dt = time.time() - t0
+                e_launches = ds.index_probe.launches - n0
+                if e_launches != int(probe == "default" and dev == "cuda"):
+                    raise AssertionError(f"{label} {probe} {dev}: kernel E "
+                                         f"launched {e_launches} times")
                 (dl, full, _, _), _, _ = h
                 outs[probe, dev] = (dl.cpu().numpy().tobytes(),
                                     full.cpu().numpy().tobytes(), r)
                 if dev == "cpu":
                     log(f"{label} {probe}: CPU plain step {1e3 * dt:.1f} ms")
                     continue
-                if probe == "merge-sort" and not split:
+                if probe == "default":
+                    e_table = seeder.probe_table
+                    nb = e_table.numel() - 1
+                    log(f"{label}: kernel E's table tbits="
+                        f"{nb.bit_length() - 1}, "
+                        f"{e_table.numel() * 4 / 2**20:.1f} MiB, "
+                        f"{seeder.hash_keys.numel() / nb:.2f} keys a bucket")
+                if probe == "default" and not split:
                     tier = {torch.int32: "u32", torch.int64: "u64"}
                     log(f"{label}: index tiers offcnt "
                         f"{tier[seeder.offcnt.dtype]}, occurrences "
@@ -1157,22 +1271,23 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                 kept[probe] = profile_step(seeder, rw, B, L,
                                            f"{label} {probe}")
                 if probe == "bucketed" and not split:
-                    kept["probe_alone_ms"] = time_probes(seeder, label)
+                    kept["probe_alone_ms"] = time_probes(seeder, e_table,
+                                                         label)
                 del seeder
                 torch.cuda.empty_cache()
         finally:
             os.environ.pop("CHROMAP_TPU_PROBE", None)
-    want = outs["merge-sort", "cuda"]
+    want = outs["default", "cuda"]
     same = {k: v[:2] == want[:2] for k, v in outs.items()}
     total = int(np.frombuffer(want[0][:4], np.uint32)[0])
     res = want[2]
-    log(f"{label}: (dl, full) byte-equal to the CUDA merge-sort step: "
-        + ", ".join(f"{p} {d} {v}" for (p, d), v in same.items())
+    log(f"{label}: (dl, full) byte-equal to the CUDA default step (kernel "
+        "E): " + ", ".join(f"{p} {d} {v}" for (p, d), v in same.items())
         + f"; candidates={total} batch_over={res[3]}; steps "
         + ", ".join(f"{p} {ms:.2f} ms" for p, ms in steps.items()))
     if not all(same.values()):
         raise AssertionError(f"{label}: a chunk download differs from the "
-                             "CUDA merge-sort step's")
+                             "CUDA default step's")
     if split:
         if res[3]:
             raise AssertionError(f"{label}: the chunk went over budget")
@@ -1187,58 +1302,56 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     return kept
 
 
-def time_probes(seeder, label: str) -> dict:
+def time_probes(seeder, e_table, label: str) -> dict:
     """The index probe alone, by CUDA events, on the seeder's index at a
-    chunk's query count (26 per read, as in the step): the merged sort,
-    the bucketed search and searchsorted, on seeded queries of which
-    about 60% are index keys and 3% invalid (UMAX64). The three must
-    agree on every valid query."""
-    import numpy as np
+    chunk's query count (26 per read, as in the step), each with its
+    offcnt gather: kernel E (over `e_table`, the default CUDA seeder's),
+    the merged sort (E's plain version), the bucketed search and
+    searchsorted, on seeded queries of which about 60% are index keys and
+    3% invalid (UMAX64). E must equal the merged sort on off, cnt and
+    found; the others must agree on found and cnt, and on off for every
+    valid query."""
     import torch
     from chromap_tpu_torch.bench import time_ms
     from chromap_tpu_torch.ops import device_seed as ds
-    from chromap_tpu_torch.ops.u64 import UMAX64, searchsorted_u64
+    from chromap_tpu_torch.ops.u64 import UMAX64
 
     M = ds.MZ_PER_READ * 32768
     nk = seeder.hash_keys.numel()
+    keys, offcnt, k = seeder.hash_keys, seeder.offcnt, seeder.k
     g = torch.Generator(device="cuda").manual_seed(5)
-    q = torch.randint(0, 1 << (2 * seeder.k), (M,), device="cuda",
-                      generator=g)
+    q = torch.randint(0, 1 << (2 * k), (M,), device="cuda", generator=g)
     pick = torch.rand(M, device="cuda", generator=g)
-    keys = seeder.hash_keys[torch.randint(0, nk, (M,), device="cuda",
-                                          generator=g)]
-    q = torch.where(pick < 0.6, keys, q)
+    q = torch.where(pick < 0.6, keys[torch.randint(
+        0, nk, (M,), device="cuda", generator=g)], q)
     valid = pick < 0.97
     q = torch.where(valid, q, UMAX64)
-    ib = max(1, (M - 1).bit_length())
 
-    def merge():
-        lf = ds._probe_merge_sort(seeder.hash_keys, q, M, ib)
-        return torch.clamp(lf & 0x7FFFFFFF, max=nk - 1), (lf < 0) & valid
+    def gathered(loc_found):
+        loc, found = loc_found
+        return (*ds._probe_gather(offcnt, loc, found), found)
 
-    def bucket():
-        return ds._probe_bucketed(seeder.probe_table, seeder.keys_lo, q,
-                                  valid, *seeder.probe)
-
-    def sortss():
-        loc = torch.clamp(searchsorted_u64(seeder.hash_keys, q), max=nk - 1)
-        return loc, (seeder.hash_keys[loc] == q) & valid
-
-    got = {n: f() for n, f in (("merge-sort", merge), ("bucketed", bucket),
-                               ("searchsorted", sortss))}
-    agree = all(torch.equal(v[1], got["merge-sort"][1])
-                and torch.equal(torch.where(valid, v[0].to(torch.int64), 0),
-                                torch.where(valid, got["merge-sort"][0]
-                                            .to(torch.int64), 0))
-                for v in got.values())
-    ms = {n: time_ms(f) for n, f in (("merge-sort", merge),
-                                       ("bucketed", bucket),
-                                       ("searchsorted", sortss))}
-    log(f"{label}: the probe alone over {M} queries and {nk} keys (CUDA "
-        "events, median of 10): " + ", ".join(
-            f"{n} {t:.3f} ms" for n, t in ms.items())
-        + f"; found {int(got['merge-sort'][1].sum())}; all three agree on "
-        f"every valid query: {agree}")
+    probes = {
+        "kernel E": lambda: ds.index_probe(keys, offcnt, q, e_table, k),
+        "merge-sort": lambda: ds.index_probe_plain(keys, offcnt, q, k),
+        "bucketed": lambda: gathered(ds._probe_bucketed(
+            seeder.probe_table, seeder.keys_lo, q, valid, *seeder.probe)),
+        "searchsorted": lambda: gathered(
+            ds._probe_searchsorted(keys, q, valid))}
+    got = {n: f() for n, f in probes.items()}
+    want = got["merge-sort"]
+    exact = all(torch.equal(a, b) for a, b in zip(got["kernel E"], want))
+    agree = exact and all(
+        torch.equal(v[1], want[1]) and torch.equal(v[2], want[2])
+        and torch.equal(torch.where(valid, v[0], 0),
+                        torch.where(valid, want[0], 0))
+        for v in got.values())
+    ms = {n: time_ms(f) for n, f in probes.items()}
+    log(f"{label}: the probe alone, with its offcnt gather, over {M} "
+        f"queries and {nk} keys (CUDA events, median of 10): " + ", ".join(
+            f"{n} {t:.4f} ms" for n, t in ms.items())
+        + f"; found {int(want[2].sum())}; kernel E equals the merged sort: "
+        f"{exact}; all four agree: {agree}")
     if not agree:
         raise AssertionError(f"{label}: the probes disagree")
     return ms
@@ -1448,7 +1561,7 @@ def profile_step(seeder, rw, B: int, L: int, label: str = "chunk"):
         f" the profiler's own overhead included); top kernels:")
     # the top kernels, then the hand-written ones further down
     own = ("dense_minimizer_kernel", "myers_kernel", "myers_dropoff_kernel",
-           "cluster_scan_kernel")
+           "cluster_scan_kernel", "index_probe_kernel")
     for i, (us, n, key) in enumerate(rows):
         if i < 14 or any(k in key for k in own):
             log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / tot:5.1f}%  "
@@ -1532,8 +1645,8 @@ def phase_tools(results: dict, genome_core: int, pairs: int) -> None:
     chunk = results.get("chunk", {})
     probe, whole = (next(r for r in stages["stage_profile BED"]
                          if r["stop"] == name) for name in ("probe", "FULL"))
-    if chunk.get("merge-sort"):
-        k, want = whole["kernel_ms"], chunk["merge-sort"]
+    if chunk.get("default"):
+        k, want = whole["kernel_ms"], chunk["default"]
         log(f"tools cross-check: stage_profile's full step {k:.3f} ms of "
             f"kernels against the chunk phase's profile {want:.3f} ms of "
             "the same step")
@@ -1542,15 +1655,15 @@ def phase_tools(results: dict, genome_core: int, pairs: int) -> None:
                                  "kernel time is more than 10% from the "
                                  "chunk phase's profile")
     if "probe_alone_ms" in chunk:
-        alone = chunk["probe_alone_ms"]["merge-sort"]
+        alone = chunk["probe_alone_ms"]["kernel E"]
         d = probe["kernel_delta_ms"]
         log(f"tools cross-check: the probe stop adds {d:.3f} ms of kernels "
-            f"({probe['delta_ms']:.3f} ms host clock); the merge-sort probe "
+            f"({probe['delta_ms']:.3f} ms host clock); kernel E "
             f"alone {alone:.3f} ms")
         if abs(d / alone - 1) > 0.2:
             raise AssertionError("tools stage_profile: the probe stop is "
                                  "more than 20% from the probe alone")
-    if not ("merge-sort" in chunk and "probe_alone_ms" in chunk):
+    if not ("default" in chunk and "probe_alone_ms" in chunk):
         log("tools cross-check: the chunk phase did not run; not compared")
     run_tool("primitives", "tools.primitives", "--cache", DATA)
     parity = run_tool("bench_parity", "tools.bench_parity", 100_000,
@@ -1679,7 +1792,8 @@ def main() -> int:
                      "max_abs_err": r.get("max_abs_err"),
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),
-                     "bound_by": r.get("bound_by"), "library_ms": None})
+                     "bound_by": r.get("bound_by"),
+                     "library_ms": r.get("library_ms")})
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -316,7 +316,7 @@ def myers_cells_per_s(dev) -> dict:
 
 def open_device(name: str):
     """The torch device `name` ("cuda" raises without a card), with the
-    four kernels built from csrc/ on CUDA (one nvcc each, at once)."""
+    kernels built from csrc/ on CUDA (one nvcc each, at once)."""
     from .ops import _build
     dev = _build.resolve_device(name)
     if dev.type == "cuda":

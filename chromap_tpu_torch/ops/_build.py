@@ -34,7 +34,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("dense_minimizer", "myers", "myers_dropoff", "cluster_scan")
+KERNELS = ("dense_minimizer", "myers", "myers_dropoff", "cluster_scan",
+           "index_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

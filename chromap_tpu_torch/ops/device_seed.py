@@ -7,12 +7,16 @@ on the device, what the native finish stage needs per read:
   minimizers   kernel A (ops/dense_minimizer.py): canonical k-mer hashes
                and closed-form window-minimizer emission over the (L, B)
                code plane
-  index probe  lower_bound of every minimizer hash in the sorted key
-               array by one merged u64 sort (`_probe_merge_sort`), or
-               searchsorted when the hash is too wide to pack (k > 22 at
-               large batches) or CHROMAP_TPU_PROBE=sortss forces it; with
-               CHROMAP_TPU_PROBE=bucket, a binary search bounded by a
-               bucket table over the top hash bits (`bucket_probe_table`)
+  index probe  kernel E (`index_probe`): lower_bound of every minimizer
+               hash in the sorted key array, searched inside its bucket
+               of a table over the top hash bits (`index_probe_table`),
+               and the key's offcnt word gathered in the same launch; its
+               plain version, on the CPU, is one merged u64 sort
+               (`_probe_merge_sort`), or searchsorted when the hash is
+               too wide to pack (k > 22 at large batches).
+               CHROMAP_TPU_PROBE=sortss forces searchsorted, and
+               CHROMAP_TPU_PROBE=bucket a torch binary search bounded by
+               the bucketed probe's table (`bucket_probe_table`)
   expansion    ragged occurrence-list gather with the uint32 candidate
                arithmetic of index.cc:491-505
   clustering   kernel C (`cluster_scan`): the exact sequential cluster
@@ -52,6 +56,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel.sharding import make_data_mesh
 from . import _build
 from ._build import resolve_device
@@ -232,21 +237,30 @@ def _probe_merge_sort(hash_keys, mz_h, Mtot: int, ib: int):
     return _scatter_rows(pk | (found << 31), qidx, Mtot)
 
 
+def _table_bits(nk: int) -> int:
+    """Bucket-table bits for nk sorted keys: about four buckets a key,
+    10 to 22 bits (the 16 MB table of 22 bits stays in an H100's L2)."""
+    return min(22, max(10, int(np.ceil(np.log2(nk))) + 2))
+
+
+def _bucket_table(keys: np.ndarray, k: int, tbits: int):
+    """(table, shift): bucket b of the top `tbits` bits of the 2k-bit hash
+    holds keys[table[b] .. table[b + 1]), shift = max(0, 2k - tbits)."""
+    shift = max(0, 2 * k - tbits)
+    bounds = np.arange((1 << tbits) + 1, dtype=np.uint64) << np.uint64(shift)
+    return np.searchsorted(keys, bounds, side="left").astype(np.int32), shift
+
+
 def bucket_probe_table(keys: np.ndarray, k: int):
     """The bucketed probe's table over sorted u64 `keys` (nk > 0), as the
     JAX seeder builds it: bucket b of the top `tbits` bits of the 2k-bit
     hash holds keys table[b]..table[b + 1] - 1. Returns (table int32
     (2^tbits + 1,), shift = 2k - tbits, depth = the halvings that bound
     a search inside the largest bucket)."""
-    nk = len(keys)
-    tbits = min(22, max(10, int(np.ceil(np.log2(nk))) + 2))
     # the search compares only the low `shift` bits via a u32 key copy,
     # so the bucket must pin the rest: tbits >= 2k - 32
-    tbits = max(tbits, 2 * k - 32)
-    shift = max(0, 2 * k - tbits)
-    nb = 1 << tbits
-    bounds = np.arange(nb + 1, dtype=np.uint64) << np.uint64(shift)
-    table = np.searchsorted(keys, bounds, side="left").astype(np.int32)
+    tbits = max(_table_bits(len(keys)), 2 * k - 32)
+    table, shift = _bucket_table(keys, k, tbits)
     max_bucket = int(np.max(table[1:] - table[:-1]))
     depth = max(1, int(np.ceil(np.log2(max(max_bucket, 1)))) + 1)
     return table, shift, depth
@@ -282,6 +296,96 @@ def _probe_bucketed(probe_table, keys_lo, mz_h, mz_valid, shift: int,
              & mz_valid)
     return loc, found
 
+
+def _probe_searchsorted(hash_keys, mz_h, mz_valid):
+    """(loc clamped to nk - 1, found) of every query by unsigned
+    searchsorted."""
+    loc = torch.clamp(searchsorted_u64(hash_keys, mz_h),
+                      max=hash_keys.shape[0] - 1)
+    return loc, (hash_keys[loc] == mz_h) & mz_valid
+
+
+def _probe_gather(offcnt, loc, found):
+    """(off int64, cnt int32) of each query from its key's offcnt word:
+    offset << 12 | count, in the u32 tier (offsets < 2^20) or u64."""
+    oc = offcnt[loc.to(I64)]
+    if offcnt.dtype == I32:
+        oc = u32_of(oc)
+        off = oc >> 12
+    else:
+        off = srl64(oc, 12)
+    return off, torch.where(found, (oc & 0xFFF).to(I32), 0)
+
+
+# ---------------------------------------------------------------------
+# kernel E: the index probe
+# ---------------------------------------------------------------------
+
+def index_probe_table(keys: np.ndarray, k: int) -> np.ndarray:
+    """Kernel E's bucket table over sorted u64 `keys` (nk > 0): int32
+    (2^tbits + 1,), bucket b of the top tbits bits of the 2k-bit hash
+    holding keys table[b]..table[b + 1] - 1. The kernel compares whole
+    keys, so tbits follows nk alone (22 bits at 31.8M keys, ~8 keys a
+    bucket)."""
+    return _bucket_table(keys, k, _table_bits(len(keys)))[0]
+
+
+def index_probe_plain(hash_keys, offcnt, mz_h, k: int):
+    """Kernel E's function in plain torch ops, on any device: one merged
+    u64 sort (`_probe_merge_sort`), or searchsorted where the hash is too
+    wide to pack with the query index (k > 22 at large batches), then
+    the offcnt gather. Invalid queries are UMAX64 (valid hashes are 2k
+    bits). Returns (off int64, cnt int32, found bool)."""
+    Mtot = mz_h.shape[0]
+    ib = max(1, (Mtot - 1).bit_length())
+    mz_valid = mz_h != UMAX64
+    if 2 * k + 1 + ib <= 64:
+        lf = _probe_merge_sort(hash_keys, mz_h, Mtot, ib)
+        loc = torch.clamp(lf & 0x7FFFFFFF, max=hash_keys.shape[0] - 1)
+        found = ((lf & MIN32) != 0) & mz_valid
+    else:
+        loc, found = _probe_searchsorted(hash_keys, mz_h, mz_valid)
+    return (*_probe_gather(offcnt, loc, found), found)
+
+
+def index_probe(hash_keys, offcnt, mz_h, table, k: int):
+    """The index probe of every query hash in `mz_h` ((Mtot,) int64, UMAX64
+    where invalid) against the sorted `hash_keys` and their `offcnt`
+    words: kernel E (csrc/index_probe.cu) over the bucket table `table`
+    (`index_probe_table`) on CUDA, the plain version on the CPU, where
+    `table` is not read. Returns (off int64, cnt int32, found bool)."""
+    if mz_h.device.type == "cpu":
+        return index_probe_plain(hash_keys, offcnt, mz_h, k)
+    if table is None:
+        raise ValueError("index_probe: kernel E needs its bucket table "
+                         "(index_probe_table)")
+    if (hash_keys.dtype != I64 or mz_h.dtype != I64 or table.dtype != I32
+            or offcnt.dtype not in (I32, I64)):
+        raise ValueError("index_probe: int64 keys and queries, int32 or "
+                         "int64 offcnt and an int32 table required")
+    _build.cuda_operands("index_probe", hash_keys, offcnt, mz_h, table)
+    M, nk, nb = mz_h.shape[0], hash_keys.shape[0], table.shape[0] - 1
+    if not 0 < nk < (1 << 31) - 1 or offcnt.shape[0] != nk \
+            or nb & (nb - 1):
+        raise ValueError("index_probe: 1 to 2^31 - 2 keys, an offcnt word "
+                         "each, and a table of 2^tbits + 1 bounds")
+    dev = mz_h.device
+    off = torch.empty(M, dtype=I64, device=dev)
+    cnt = torch.empty(M, dtype=I32, device=dev)
+    found = torch.empty(M, dtype=torch.bool, device=dev)
+    shift = max(0, 2 * k - (nb.bit_length() - 1))
+    _build.launch("index_probe", mz_h, hash_keys, offcnt, table, off, cnt,
+                  found, M, nk, nb, shift, int(offcnt.dtype == I64))
+    index_probe.launches += 1
+    return off, cnt, found
+
+
+index_probe.launches = 0
+
+
+# ---------------------------------------------------------------------
+# stages between the kernels, after the probe
+# ---------------------------------------------------------------------
 
 def _flat_compact_T(mask_T, cap: int):
     """Transposed-layout flat compaction: mask_T is (S, B) slot-major.
@@ -392,8 +496,9 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
                 stop: str | None = None):
     """Returns the batch step; the index/reference tensors are arguments,
     as in the JAX program. `split` verifies with drop-off Myers (Hi-C)
-    instead of banded Myers. `probe` picks the index probe: None the
-    merged sort (searchsorted where the hash is too wide to pack),
+    instead of banded Myers. `probe` picks the index probe: None kernel
+    E on CUDA, over its bucket table in `probe_table` (on the CPU the
+    merged sort, searchsorted where the hash is too wide to pack),
     "sortss" searchsorted always, (shift, depth) the bucketed search,
     which takes the `probe_table` and `keys_lo` tensors. `stop` (one of
     STAGES) truncates the step after the named stage and returns
@@ -465,28 +570,18 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
             return _stage_out(mz_h, mz_packmeta)
 
         # ---- index probe -------------------------------------------------
-        ib = max(1, (Mtot - 1).bit_length())
-        nk = hash_keys.shape[0]
-        if isinstance(probe, tuple):
-            loc, found = _probe_bucketed(probe_table, keys_lo, mz_h,
-                                         mz_valid, *probe)
-        elif 2 * k + 1 + ib <= 64 and probe != "sortss":
-            lf = _probe_merge_sort(hash_keys, mz_h, Mtot, ib)
-            loc = torch.clamp(lf & 0x7FFFFFFF, max=nk - 1)
-            found = ((lf & MIN32) != 0) & mz_valid
+        if probe is None:
+            # kernel E on CUDA (probe_table is its bucket table), the
+            # merged sort on the CPU
+            off, cnt, found = index_probe(hash_keys, offcnt, mz_h,
+                                          probe_table, k)
         else:
-            # hash too wide to pack with the query index (k > 22 at
-            # large batches), or forced: unsigned searchsorted
-            loc = torch.clamp(searchsorted_u64(hash_keys, mz_h), max=nk - 1)
-            found = (hash_keys[loc] == mz_h) & mz_valid
-        oc = offcnt[loc.to(I64)]
-        if offcnt.dtype == I32:
-            # u32 offcnt tier (offsets < 2^20)
-            oc = u32_of(oc)
-            off = oc >> 12
-        else:
-            off = srl64(oc, 12)
-        cnt = torch.where(found, (oc & 0xFFF).to(I32), 0)
+            if probe == "sortss":
+                loc, found = _probe_searchsorted(hash_keys, mz_h, mz_valid)
+            else:
+                loc, found = _probe_bucketed(probe_table, keys_lo, mz_h,
+                                             mz_valid, *probe)
+            off, cnt = _probe_gather(offcnt, loc, found)
         if stop == "probe":
             return _stage_out(off, cnt, found)
 
@@ -860,6 +955,14 @@ INDEX_TENSORS = ("hash_keys", "offcnt", "occurrences", "ref_words",
                  "keys_lo")
 
 
+def _count_probe_kernel(launches_before: int) -> None:
+    """Count a submitted chunk in the tracer's `seeder.probe_kernel` when
+    its probe ran through kernel E (index_probe launched since
+    `launches_before`)."""
+    if index_probe.launches > launches_before:
+        tracing.count("seeder.probe_kernel")
+
+
 def _wait_download(dl_host, event) -> np.ndarray:
     if event is not None:
         event.synchronize()
@@ -897,8 +1000,10 @@ class DeviceSeeder:
         for name, arr in arrays.items():
             setattr(self, name, _to_tensor(arr, self.device))
         # the index probe, read from CHROMAP_TPU_PROBE when the seeder is
-        # built: the merged sort by default; "bucket" builds the bucket
-        # table and the keys' u32 low words; "sortss" forces searchsorted
+        # built: by default kernel E, over its bucket table on CUDA (the
+        # merged sort, its plain version, on the CPU); "bucket" builds
+        # the bucketed search's table and the keys' u32 low words;
+        # "sortss" forces searchsorted
         keys = arrays["hash_keys"]
         mode = os.environ.get("CHROMAP_TPU_PROBE")
         self.probe = "sortss" if mode == "sortss" else None
@@ -909,6 +1014,10 @@ class DeviceSeeder:
             self.probe_table = _to_tensor(table, self.device)
             self.keys_lo = _to_tensor(
                 (keys & np.uint64(M32)).astype(np.uint32), self.device)
+        elif (len(keys) > 0 and self.probe is None
+              and self.device.type == "cuda"):
+            self.probe_table = _to_tensor(index_probe_table(keys, self.k),
+                                          self.device)
         self._lengths_cache = {}
         # resolved chunks, of which over a flat budget (mapped on the
         # host), and their rows, of which flagged FLAG_FALLBACK
@@ -933,8 +1042,11 @@ class DeviceSeeder:
         marks the download's end. With lengths=None all reads are length
         L."""
         rw_t = from_numpy_u32(np.asarray(rw).reshape(B, -1))
-        return (self._dispatch(self.device, self._index_operands(), rw_t,
-                               lengths, B, L), CANDS_PER_READ * B, L)
+        n0 = index_probe.launches
+        handle = (self._dispatch(self.device, self._index_operands(), rw_t,
+                                 lengths, B, L), CANDS_PER_READ * B, L)
+        _count_probe_kernel(n0)
+        return handle
 
     def _index_operands(self):
         return tuple(getattr(self, name) for name in INDEX_TENSORS)
@@ -1086,6 +1198,7 @@ class MeshSeeder(DeviceSeeder):
             return super().submit_packed(rw, B, L, lengths=lengths)
         Bs = B // n
         rw_t = from_numpy_u32(np.asarray(rw).reshape(B, -1))
+        n0 = index_probe.launches
         shards = []
         for i, (dev, stream) in enumerate(zip(self.devices, self._streams)):
             rows = slice(i * Bs, (i + 1) * Bs)
@@ -1093,6 +1206,7 @@ class MeshSeeder(DeviceSeeder):
                 dev, self._replicas[dev], rw_t[rows],
                 None if lengths is None else np.asarray(lengths)[rows],
                 Bs, L, stream))
+        _count_probe_kernel(n0)
         return shards, CANDS_PER_READ * Bs, L
 
     def resolve(self, handle):

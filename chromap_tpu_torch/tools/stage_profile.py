@@ -2,7 +2,7 @@
 counterpart of tools/device_stage_profile.py.
 
     python -m chromap_tpu_torch.tools.stage_profile [--cache DIR]
-        [--rows 32768] [--reps 20] [--split] [--probe {merge,bucket,sortss}]
+        [--rows 32768] [--reps 20] [--split] [--probe {default,bucket,sortss}]
         [--reads PREFIX] [--torch-device {cuda,cpu}]
 
 For every stop of `STAGES`, in order, it builds the step truncated there
@@ -30,6 +30,8 @@ adds to the step, launch overhead included. On the CPU (`--torch-device
 cpu`) the host clock times the plain versions and no device time is
 measured (kernel_ms null).
 
+`--probe default` is the seeder's default probe (kernel E on CUDA, the
+merged sort on the CPU); `bucket` and `sortss` set CHROMAP_TPU_PROBE.
 `--cache` names a data set made by `python -m chromap_tpu_torch.bench`
 or `chip_smoke.py` (ref.fa, index, <reads>1.fq, <reads>2.fq); by default
 the bench's set, made if absent. `--split` runs the Hi-C step (drop-off
@@ -47,7 +49,7 @@ import time
 
 from ..ops.device_seed import STAGES
 
-PROBES = {"merge": None, "bucket": "bucket", "sortss": "sortss"}
+PROBES = {"default": None, "bucket": "bucket", "sortss": "sortss"}
 
 
 def add_chunk_args(ap: argparse.ArgumentParser) -> None:
@@ -60,7 +62,7 @@ def add_chunk_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--split", action="store_true",
                     help="the Hi-C step (drop-off verification, e = 4)")
-    ap.add_argument("--probe", choices=sorted(PROBES), default="merge")
+    ap.add_argument("--probe", choices=sorted(PROBES), default="default")
     ap.add_argument("--torch-device", choices=("cuda", "cpu"),
                     default="cuda")
 
@@ -162,18 +164,21 @@ def kernel_wrappers() -> dict:
     from ..ops import myers as my
     return {"dense_minimizer": dm.dense_minimizer, "myers": my.myers,
             "cluster_scan": ds.cluster_scan,
-            "myers_dropoff": my.myers_dropoff}
+            "myers_dropoff": my.myers_dropoff,
+            "index_probe": ds.index_probe}
 
 
 def expected_launches(stop, split: bool) -> dict:
-    """The hand-written kernels a step truncated at `stop` launches: A
-    from `kmer` on, C from `cluster` on, and B (BED) or D twice (split:
-    the primary pass and the 5'-gap retry) only in the full step."""
+    """The hand-written kernels a CUDA step with the default probe,
+    truncated at `stop`, launches: A from `kmer` on, E from `probe` on,
+    C from `cluster` on, and B (BED) or D twice (split: the primary pass
+    and the 5'-gap retry) only in the full step."""
     i = STAGES.index(stop)
     return {"dense_minimizer": int(i >= STAGES.index("kmer")),
             "myers": int(stop is None and not split),
             "cluster_scan": int(i >= STAGES.index("cluster")),
-            "myers_dropoff": 2 * int(stop is None and split)}
+            "myers_dropoff": 2 * int(stop is None and split),
+            "index_probe": int(i >= STAGES.index("probe"))}
 
 
 def host_ms(call, reps: int, dev) -> float:

@@ -9,8 +9,8 @@ number of reads per shard S (weak scaling: n * S reads in all), on the
 first n * S reads of a data set (read pairs interleaved as the pipeline
 packs them) against its index (k = 17, w = 7, e = 8). `--cache` names
 the set as for tools/stage_profile.py: by default the bench's set, made
-if absent; `chip_smoke.py` runs it on its 141 Mb set, where each shard's
-merged-sort probe sorts the whole 31.8M-key index. Shard i runs on card
+if absent; `chip_smoke.py` runs it on its 141 Mb set, where each shard probes
+the whole 31.8M-key index (kernel E on CUDA). Shard i runs on card
 i % (cards visible): on a machine with one card every shard is a shard
 of cuda:0; with several, every card is used. On the CPU (`--torch-device
 cpu`) the shards are shards of the CPU. Each size's wall is the median

@@ -61,7 +61,9 @@ Spans (per pass, chunk, group or stage, never per read):
 Counters: chunks.dev (device-seeded chunks finished), chunks.cpu (chunks
 mapped on the host from the start), pairs.cpu (their pairs, reads in
 single-end runs), hybrid.flushes and hybrid.group_sum (one a group, and
-the group size G the scheduler had set for it).
+the group size G the scheduler had set for it), seeder.probe_kernel
+(chunks submitted whose index probe ran through kernel E,
+ops/device_seed.py `index_probe`).
 """
 
 from __future__ import annotations

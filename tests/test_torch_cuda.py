@@ -301,6 +301,112 @@ def test_bucketed_seeder_card_equals_cpu(card, small_world, monkeypatch,
     assert outs[0] == outs[1] == outs[2]
 
 
+def _probe_world(case, k, wide, M, dev, rng):
+    """(keys, offcnt, queries, table) on `dev` for kernel E: sorted
+    distinct 2k-bit keys (one, two, a sparse index with a crowded bucket
+    and both ends of the range, or uniform), offcnt words in the u32 or
+    u64 tier, and queries of which a third are keys, a tenth invalid
+    (UMAX64), the rest random, the first and last key among them."""
+    top = 1 << (2 * k)
+    if case == "one":
+        keys = np.array([rng.integers(1, top - 1)], np.uint64)
+    elif case == "two":
+        keys = np.sort(rng.choice(top, 2, replace=False)).astype(np.uint64)
+    elif case == "crowded":
+        base = int(rng.integers(0, top - 1000))
+        keys = np.unique(np.concatenate([
+            rng.choice(top, 40, replace=False),
+            base + rng.choice(1000, 60, replace=False), [0, top - 1]])
+            .astype(np.uint64))
+    else:
+        keys = np.unique(rng.integers(0, top, 20000, dtype=np.uint64))
+    nk = len(keys)
+    if wide:
+        words = rng.integers(0, 1 << 62, nk, dtype=np.uint64) << np.uint64(2)
+        offcnt = from_numpy_u64(words | np.uint64(1 << 63))
+    else:
+        offcnt = torch.from_numpy(
+            rng.integers(0, 1 << 32, nk, dtype=np.int64).astype(np.int32))
+    q = rng.integers(0, top, M, dtype=np.uint64)
+    q[: M // 3] = rng.choice(keys, M // 3)
+    q[M // 3:M // 3 + 2] = keys[[0, -1]]
+    q[-M // 10:] = UMAX
+    table = torch.from_numpy(ds.index_probe_table(keys, k))
+    return tuple(t.to(dev) for t in (from_numpy_u64(keys), offcnt,
+                                     from_numpy_u64(q), table))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["u32", "u64"])
+@pytest.mark.parametrize("case", ["one", "two", "crowded", "uniform"])
+@pytest.mark.parametrize("k", [15, 17, 21, 23])
+def test_index_probe_kernel_equals_plain(card, k, case, wide):
+    """Kernel E against its plain version (the merged sort) on the same
+    CUDA tensors: off, cnt and found equal, one launch."""
+    rng = np.random.default_rng(100 * k + len(case) + 2 * wide)
+    keys, offcnt, q, table = _probe_world(case, k, wide, 4099, card, rng)
+    before = ds.index_probe.launches
+    got = ds.index_probe(keys, offcnt, q, table, k)
+    assert ds.index_probe.launches == before + 1
+    want = ds.index_probe_plain(keys, offcnt, q, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[2].sum()) >= 4099 // 3
+
+
+def test_index_probe_kernel_at_a_141mb_index(card):
+    """Kernel E at the main path's shape: 31.8M uniform keys (a 141 Mb
+    genome's index at k = 17), u64 offcnt, 851,968 queries (a chunk of
+    32,768 reads), against the merged sort on the card."""
+    k, nk, M = 17, 31_800_000, ds.MZ_PER_READ * 32768
+    g = torch.Generator(device=card).manual_seed(17)
+    keys = torch.unique(torch.randint(0, 1 << (2 * k), (nk + nk // 50,),
+                                      device=card, generator=g))[:nk]
+    offcnt = torch.randint(0, 1 << 62, (nk,), device=card, generator=g)
+    table = torch.from_numpy(ds.index_probe_table(
+        keys.cpu().numpy().view(np.uint64), k)).to(card)
+    assert table.numel() == (1 << 22) + 1
+    q = torch.randint(0, 1 << (2 * k), (M,), device=card, generator=g)
+    pick = torch.rand(M, device=card, generator=g)
+    q = torch.where(pick < 0.6, keys[torch.randint(0, nk, (M,), device=card,
+                                                   generator=g)], q)
+    q = torch.where(pick > 0.97, -1, q)
+    got = ds.index_probe(keys, offcnt, q, table, k)
+    want = ds.index_probe_plain(keys, offcnt, q, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[2].sum()) > M // 2
+
+
+def test_probe_switches_card_equal_the_default_step(card, small_world,
+                                                    monkeypatch):
+    """CHROMAP_TPU_PROBE=bucket and =sortss on the card, and the CPU's
+    plain step: every download equals the card's default step (kernel
+    E), in BED and split mode; only the default launches kernel E."""
+    index, ref_codes, ref_seqs = small_world
+    B, L = 4096, 100
+    rw = ds._pack_reads(_reads(ref_codes, np.random.default_rng(41), B, L))
+    for split in (False, True):
+        outs = {}
+        for mode, dev in ((None, card), ("bucket", card), ("sortss", card),
+                          (None, "cpu")):
+            if mode is None:
+                monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
+            else:
+                monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
+            seeder = ds.DeviceSeeder(index, ref_seqs, 4 if split else E,
+                                     MIN_SEEDS, F, device=dev, split=split)
+            before = ds.index_probe.launches
+            (dl, full, _, _), _, _ = seeder.submit_packed(rw, B, L)
+            outs[mode, str(dev)] = (dl.cpu().numpy().tobytes(),
+                                    full.cpu().numpy().tobytes(),
+                                    ds.index_probe.launches - before)
+        want = outs[None, str(card)]
+        assert want[2] == 1
+        for key, got in outs.items():
+            assert got[:2] == want[:2], key
+            assert got[2] == int(key == (None, str(card))), key
+
+
 def test_wrappers_refuse_bad_operands(card):
     codes = torch.zeros((10, 8), dtype=torch.int64, device=card)
     lengths = torch.full((1, 8), 10, dtype=torch.int32, device=card)
@@ -310,6 +416,16 @@ def test_wrappers_refuse_bad_operands(card):
     with pytest.raises(ValueError):
         my.myers(pt, torch.zeros((4, 8), dtype=torch.int32, device=card),
                  2, 4)
+    keys = torch.arange(5, dtype=torch.int64, device=card)
+    offcnt = torch.zeros(5, dtype=torch.int64, device=card)
+    table = torch.zeros(1025, dtype=torch.int32, device=card)
+    q = torch.zeros(7, dtype=torch.int64, device=card)
+    for args in ((keys, offcnt, q, None), (keys, offcnt, q.to(torch.int32),
+                                           table),
+                 (keys, offcnt[:4], q, table), (keys, offcnt, q, table[:-1]),
+                 (keys, offcnt, q[::2], table)):
+        with pytest.raises(ValueError):
+            ds.index_probe(*args, 17)
 
 
 @pytest.fixture(scope="module")
@@ -349,15 +465,20 @@ def test_seeder_card_equals_cpu(card, small_world, monkeypatch, B, L,
         monkeypatch.setattr(ds, "index_tiers", lambda *a: tiers)
     reads = _reads(ref_codes, np.random.default_rng(B), B, L)
     rw = ds._pack_reads(reads)
-    outs = []
+    monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
+    outs, launches = [], []
     for dev in (card, "cpu"):
         seeder = ds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F,
                                  device=dev)
+        before = ds.index_probe.launches
         handle = seeder.submit_packed(rw, B, L)
         res = seeder.resolve(handle)
+        launches.append(ds.index_probe.launches - before)
         (dl, full, _, _), _, _ = handle
         outs.append((dl.cpu().numpy().tobytes(), full.cpu().numpy().tobytes(),
                      res))
+    # the card's default probe is kernel E, the CPU's the merged sort
+    assert launches == [1, 0]
     assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
     for a, b in zip(outs[0][2][:3], outs[1][2][:3]):
         np.testing.assert_array_equal(a, b)
@@ -380,13 +501,14 @@ def test_split_seeder_card_equals_cpu(card, small_world, e):
     for dev in (card, "cpu"):
         seeder = ds.DeviceSeeder(index, ref_seqs, e, MIN_SEEDS, F,
                                  device=dev, split=True)
-        before = my.myers_dropoff.launches
+        before = (my.myers_dropoff.launches, ds.index_probe.launches)
         handle = seeder.submit_packed(rw, B, L)
         res = seeder.resolve(handle)
         (dl, full, _, _), _, _ = handle
         outs.append((dl.cpu().numpy().tobytes(), full.cpu().numpy().tobytes(),
-                     res, my.myers_dropoff.launches - before))
-    assert outs[0][3] == 2 and outs[1][3] == 0
+                     res, (my.myers_dropoff.launches - before[0],
+                           ds.index_probe.launches - before[1])))
+    assert outs[0][3] == (2, 1) and outs[1][3] == (0, 0)
     assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
     a, b = outs[0][2], outs[1][2]
     for x, y in zip(a[:2] + a[2], b[:2] + b[2]):
@@ -418,10 +540,11 @@ def test_mesh_seeder_card_equals_cpu(card, small_world, monkeypatch, n,
     args = (index, ref_seqs, e, MIN_SEEDS, F)
     mesh = ds.MeshSeeder(*args, [card] * n, split=split)
     assert len(mesh._replicas) == 1 and len(set(mesh._streams)) == n
-    before = dm.dense_minimizer.launches
+    before = dm.dense_minimizer.launches, ds.index_probe.launches
     handle = mesh.submit_packed(rw, B, L)
     got = _flat(mesh.resolve(handle))
-    assert dm.dense_minimizer.launches - before == n
+    assert dm.dense_minimizer.launches - before[0] == n
+    assert ds.index_probe.launches - before[1] == n
     cpu = ds.MeshSeeder(*args, ["cpu"] * n, split=split)
     chandle = cpu.submit_packed(rw, B, L)
     for (dl, full, _, _), (cdl, cfull, _, _) in zip(handle[0], chandle[0]):
