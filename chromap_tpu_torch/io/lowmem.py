@@ -25,6 +25,7 @@ import struct
 import numpy as np
 from typing import Iterator, List, Optional, Tuple
 
+from .. import tracing
 from ..config import MappingConfig
 from ..mapping.records import RECORD_CODECS, RECORD_TAGS
 from ..summary import DUP, LOWMAPQ, MAPPED
@@ -166,6 +167,7 @@ def spill_bed_arrays(cfg: MappingConfig, chunks: List[tuple], num_refs: int,
             f.write(_U64.pack(int(counts[r])))
             if counts[r]:
                 f.write(raw[bounds[r] * isz:bounds[r + 1] * isz])
+    tracing.count("lowmem.spill_rows", len(arr))
     shard_paths.append(path)
 
 
@@ -176,6 +178,7 @@ def spill_mappings(cfg: MappingConfig, mappings_on_refs: List[List[object]],
     sort_mappings(mappings_on_refs)
     path = f"{_spill_base(cfg, base)}.temp{len(shard_paths)}"
     TempMappingShard.write(path, mappings_on_refs)
+    tracing.count("lowmem.spill_rows", sum(map(len, mappings_on_refs)))
     shard_paths.append(path)
     for lst in mappings_on_refs:
         lst.clear()
@@ -263,6 +266,7 @@ def merge_and_output_low_memory(cfg: MappingConfig, shard_paths: List[str],
                 shard_paths.clear()
                 return uni, multi, passing
 
+    tracing.count("lowmem.merge_per_record")
     # per-shard read-buffer size under the reference's merge memory budget
     # (mapping_writer.h:179-184: 10 GiB, 1 GiB for text-record formats)
     budget = (_MERGE_BUDGET_TEXT

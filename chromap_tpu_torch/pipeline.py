@@ -883,6 +883,7 @@ class MappingPipeline:
     @tracing.traced("lowmem.spill")
     def _spill_now(self, base) -> None:
         from .io.lowmem import spill_mappings, spill_bed_arrays
+        files = len(self.temp_shard_paths)
         chunks = getattr(self, "_spill_chunks", None)
         if chunks:
             spill_bed_arrays(self.cfg, chunks, len(self.ref_names),
@@ -894,6 +895,7 @@ class MappingPipeline:
         else:
             spill_mappings(self.cfg, self.mappings_on_refs,
                            self.temp_shard_paths, base=base)
+        tracing.count("lowmem.spills", len(self.temp_shard_paths) - files)
 
     def _maybe_spill(self) -> None:
         """Spill sorted shards when over budget (low-memory mode)."""
@@ -2491,6 +2493,7 @@ class MappingPipeline:
                         cfg, self.temp_shard_paths, writer,
                         whitelist=self.whitelist, summary=self.summary,
                         engine=self._native_engine)
+            tracing.count("lowmem.merge_rows_out", num_passing)
             log(f"# uni-mappings: {num_uni}, # multi-mappings: {num_multi}, "
                 f"total: {num_uni + num_multi}.")
             log(f"Number of output mappings (passed filters): {num_passing}")

@@ -63,7 +63,11 @@ mapped on the host from the start), pairs.cpu (their pairs, reads in
 single-end runs), hybrid.flushes and hybrid.group_sum (one a group, and
 the group size G the scheduler had set for it), seeder.probe_kernel
 (chunks submitted whose index probe ran through kernel E,
-ops/device_seed.py `index_probe`).
+ops/device_seed.py `index_probe`), and in low-memory mode
+lowmem.spills (spill files written), lowmem.spill_rows (the rows written
+to them), lowmem.merge_rows_out (the lines the merge wrote) and
+lowmem.merge_per_record (once a merge that took the per-record Python
+merge, io/lowmem.py, instead of the native one).
 """
 
 from __future__ import annotations

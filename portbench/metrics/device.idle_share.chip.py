@@ -1,0 +1,10 @@
+"""device.idle_share in the --preset chip cell: a metric of its own beside
+the one that lists the Hi-C cell, read as device.idle_share.py reads
+it."""
+
+import os
+
+from portbench.spec import _load
+
+read = _load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "device.idle_share.py")).read

@@ -1,11 +1,12 @@
 """The port's tracer (chromap_tpu_torch/tracing.py) through the CLI with
 `--device --torch-device cpu --device-batch-size 512`. With
-CHROMAP_TPU_HYBRID_PROFILE set, a full-native BED run and a `--preset hic`
-run (the records flow) each print one HYBRID_PROFILE line a pass, with
-the spans and counters the flow takes; the spans nest and their self
-times add up; the output stage's C++ stamps nest inside output.native;
-the outputs equal the untraced run's. Unset, nothing is printed or kept.
-The clock anchor is held against a CPU-only torch.profiler."""
+CHROMAP_TPU_HYBRID_PROFILE set, a full-native BED run, a `--preset hic`
+run and a `--preset chip` run (the records flow, with low-memory spill
+and merge) each print one HYBRID_PROFILE line a pass, with the spans and
+counters the flow takes; the spans nest and their self times add up;
+the output stage's C++ stamps nest inside output.native; the outputs
+equal the untraced run's. Unset, nothing is printed or kept. The clock
+anchor is held against a CPU-only torch.profiler."""
 
 import json
 import os
@@ -35,19 +36,29 @@ RUN = ("import json, sys; from chromap_tpu_torch import cli, tracing; "
 
 DEVICE_SPANS = {"pass", "hybrid.flush", "seeder.pack", "seeder.submit",
                 "hybrid.wait", "native.finish", "native.cpu_map"}
+COUNTERS = {"chunks.dev", "chunks.cpu", "pairs.cpu", "hybrid.flushes",
+            "hybrid.group_sum"}
+# the Python records flow with low-memory spill and merge; the native
+# merge counts no per-record merge
+RECORDS_SPANS = DEVICE_SPANS | {"records.read", "records.pack", "hybrid",
+                                "records.emit", "lowmem.spill",
+                                "lowmem.merge"}
+LOWMEM_COUNTERS = COUNTERS | {"lowmem.spills", "lowmem.spill_rows",
+                              "lowmem.merge_rows_out"}
 FLOWS = {
     # full-native BED: native FASTQ reader, the hybrid scheduler's slot
     # copies, the native output stage
     "bed": ([], "out.bed", DEVICE_SPANS | {
         "fastq.wait", "hybrid.copy", "output.concat", "output.native",
-        "output.sort", "output.write"}),
-    # Hi-C: the Python records flow, spill and merge
-    "hic": (["--preset", "hic"], "out.pairs", DEVICE_SPANS | {
-        "records.read", "records.pack", "hybrid", "records.emit",
-        "lowmem.spill", "lowmem.merge"}),
+        "output.sort", "output.write"}, COUNTERS),
+    # Hi-C: .pairs records, spilled as record objects
+    "hic": (["--preset", "hic"], "out.pairs", RECORDS_SPANS,
+            LOWMEM_COUNTERS),
+    # --preset chip: BED rows stashed as arrays, the array spill and the
+    # native merge with its PCR dedup
+    "chip": (["--preset", "chip"], "out.bed", RECORDS_SPANS,
+             LOWMEM_COUNTERS),
 }
-COUNTERS = {"chunks.dev", "chunks.cpu", "pairs.cpu", "hybrid.flushes",
-            "hybrid.group_sum"}
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +72,7 @@ def sim_data(tmp_path_factory):
 
 
 def _run(d, flow, traced):
-    extra, out_name, _ = FLOWS[flow]
+    extra, out_name, _, _ = FLOWS[flow]
     tag = "on" if traced else "off"
     out = d / f"{flow}.{tag}.{out_name}"
     dump = d / f"{flow}.{tag}.json"
@@ -93,7 +104,7 @@ def test_one_profile_line_a_pass_with_the_flows_spans(runs, flow):
     assert len(lines) == 1
     line = lines[0]
     assert set(line["spans"]) == FLOWS[flow][2]
-    assert set(line["counters"]) == COUNTERS
+    assert set(line["counters"]) == FLOWS[flow][3]
     assert line["pass_s"] == line["spans"]["pass"][1]
     assert line["counters"]["chunks.dev"] > 0
     assert line["counters"]["chunks.cpu"] > 0
