@@ -10,6 +10,8 @@ import ctypes
 import os
 import subprocess
 import sys
+from concurrent import futures
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -130,6 +132,15 @@ def load_library():
         ctypes.c_void_p, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_char_p),
         ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+    ]
+    lib.cn_fastx_read_batch_named.restype = ctypes.c_int64
+    lib.cn_fastx_read_batch_named.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_char_p),
     ]
     lib.cn_collect_pairs.restype = ctypes.c_int64
     lib.cn_collect_pairs.argtypes = [
@@ -297,21 +308,6 @@ class NativeEngine:
             self.lib.cn_destroy(self.ctx)
             self.ctx = None
 
-    def map_pairs(self, reads1: List[bytes], reads2: List[bytes],
-                  base_read_id: int, cache_update_threshold: int
-                  ) -> Tuple[dict, np.ndarray]:
-        n = len(reads1)
-        r1_bytes = b"".join(reads1)
-        r2_bytes = b"".join(reads2)
-        r1_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads1], out=r1_off[1:])
-        r2_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads2], out=r2_off[1:])
-
-        return self.map_pairs_raw(r1_bytes, _ptr(r1_off), r2_bytes,
-                                  _ptr(r2_off), n, base_read_id,
-                                  cache_update_threshold)
-
     def map_pairs_raw(self, r1_bytes, r1_off_ptr, r2_bytes, r2_off_ptr,
                       n: int, base_read_id: int,
                       cache_update_threshold: int) -> Tuple[dict, np.ndarray]:
@@ -396,24 +392,6 @@ class NativeEngine:
         out["posalen"] = np.zeros(count, dtype=np.uint16)
         out["negalen"] = np.zeros(count, dtype=np.uint16)
         return out, stats
-
-    def map_pairs_full(self, reads1: List[bytes], reads2: List[bytes],
-                       base_read_id: int, cache_update_threshold: int,
-                       sam_aux: bool = False):
-        """Extended mapping: per-end reference start/end, error counts and
-        MAPQ; with sam_aux, also the CIGAR/NM/MD streams recorded by the
-        SAM-mode recover path."""
-        n = len(reads1)
-        r1_bytes = b"".join(reads1)
-        r2_bytes = b"".join(reads2)
-        r1_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads1], out=r1_off[1:])
-        r2_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(r) for r in reads2], out=r2_off[1:])
-        return self.map_pairs_full_raw(r1_bytes, _ptr(r1_off), r2_bytes,
-                                       _ptr(r2_off), n, base_read_id,
-                                       cache_update_threshold,
-                                       sam_aux=sam_aux)
 
     def map_pairs_full_raw(self, r1_bytes, r1_off_ptr, r2_bytes,
                            r2_off_ptr, n: int, base_read_id: int,
@@ -860,6 +838,7 @@ class NativeFastxReader:
         self.lib = load_library()
         if self.lib is None:
             raise RuntimeError("native library unavailable")
+        self.path = path
         self.handle = self.lib.cn_fastx_open(path.encode())
         if not self.handle:
             raise FileNotFoundError(path)
@@ -878,6 +857,158 @@ class NativeFastxReader:
                                          ctypes.byref(seq_ptr),
                                          ctypes.byref(off_ptr))
         return n, seq_ptr, ctypes.cast(off_ptr, ctypes.c_void_p)
+
+    def read_batch_named(self, max_n: int):
+        """Up to max_n reads with their names, parsed as io/fastx.py's
+        FastxReader parses them: (n, bases, offsets, names, name_offsets).
+        `bases` points into the reader's buffers and `offsets` (n+1 int64)
+        is a view of them, both valid until the second call after this
+        one; `names` is a copy. Fewer than max_n reads means the file has
+        ended. A malformed record raises ValueError."""
+        seq_ptr = ctypes.c_char_p()
+        off_ptr = ctypes.POINTER(ctypes.c_int64)()
+        name_ptr = ctypes.c_void_p()
+        name_off_ptr = ctypes.POINTER(ctypes.c_int64)()
+        err = ctypes.c_char_p()
+        n = self.lib.cn_fastx_read_batch_named(
+            self.handle, max_n, ctypes.byref(seq_ptr), ctypes.byref(off_ptr),
+            ctypes.byref(name_ptr), ctypes.byref(name_off_ptr),
+            ctypes.byref(err))
+        if n < 0:
+            msg = f"{err.value.decode(errors='replace')} in {self.path!r}"
+            raise ValueError(msg) if n == -1 else EOFError(msg)
+        offsets = np.ctypeslib.as_array(off_ptr, shape=(n + 1,))
+        name_offsets = np.ctypeslib.as_array(name_off_ptr, shape=(n + 1,))
+        size = int(name_offsets[n])
+        names = ctypes.string_at(name_ptr, size) if size else b""
+        return n, seq_ptr, offsets, names, name_offsets
+
+
+class NativeReadBatch:
+    """One batch of a NativeFastxStream: its reads' bases as one blob with
+    n+1 int64 offsets, their names likewise, and the id of the first read
+    (the ids run on by one)."""
+
+    __slots__ = ("bases", "offsets", "names", "name_offsets", "first_id")
+
+    def __init__(self, bases, offsets, names, name_offsets, first_id):
+        self.bases = bases
+        self.offsets = offsets
+        self.names = names
+        self.name_offsets = name_offsets
+        self.first_id = first_id
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def read_ids(self) -> np.ndarray:
+        return np.arange(self.first_id, self.first_id + len(self),
+                         dtype=np.uint32)
+
+
+def _join_parts(parts):
+    """One batch out of the parts that several files gave it: the bases
+    and names copied out of each reader's buffers and their offsets
+    shifted."""
+    bases, offs, names, name_offs = [], [], [], []
+    shift = name_shift = 0
+    for _, seq_ptr, o, nm, no in parts:
+        size = int(o[-1])
+        bases.append(ctypes.string_at(seq_ptr, size))
+        offs.append(o[:-1] + shift)
+        names.append(nm)
+        name_offs.append(no[:-1] + name_shift)
+        shift += size
+        name_shift += len(nm)
+    offs.append(np.array([shift], dtype=np.int64))
+    name_offs.append(np.array([name_shift], dtype=np.int64))
+    return (b"".join(bases), np.concatenate(offs), b"".join(names),
+            np.concatenate(name_offs))
+
+
+class NativeFastxStream:
+    """io/fastx.py's MultiFileFastxStream read natively: the same batches
+    (filled across file boundaries up to the batch size, read ids running
+    on across files), each a NativeReadBatch. A batch from one file keeps
+    its bases in that reader's buffers, so it is valid until the second
+    read_batch call after it; one that spans files is a copy."""
+
+    def __init__(self, paths: List[str]):
+        self._paths = list(paths)
+        self._path_index = 0
+        self._reader: Optional[NativeFastxReader] = None
+        self._ended: List[NativeFastxReader] = []
+        self._next_id = 0
+
+    def read_batch(self, batch_size: int) -> NativeReadBatch:
+        # readers that ended in the last batch still hold its reads
+        self._close_ended()
+        parts = []
+        got = 0
+        while got < batch_size:
+            if self._reader is None:
+                if self._path_index >= len(self._paths):
+                    break
+                self._reader = NativeFastxReader(
+                    self._paths[self._path_index])
+                self._path_index += 1
+            part = self._reader.read_batch_named(batch_size - got)
+            if part[0] < batch_size - got:
+                self._ended.append(self._reader)
+                self._reader = None
+            if part[0]:
+                parts.append(part)
+                got += part[0]
+        if len(parts) == 1:
+            _, bases, offsets, names, name_offsets = parts[0]
+        elif parts:
+            bases, offsets, names, name_offsets = _join_parts(parts)
+        else:
+            bases, offsets, names, name_offsets = (
+                b"", np.zeros(1, dtype=np.int64), b"",
+                np.zeros(1, dtype=np.int64))
+        batch = NativeReadBatch(bases, offsets, names, name_offsets,
+                                self._next_id)
+        self._next_id += got
+        return batch
+
+    def _close_ended(self) -> None:
+        for reader in self._ended:
+            reader.close()
+        self._ended = []
+
+    def close(self) -> None:
+        self._close_ended()
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+
+
+class NativeFastxPairStream:
+    """The two mates' NativeFastxStreams of a paired run, read at once (a
+    native read drops the GIL): each read_batch gives the batches the two
+    streams give one after the other."""
+
+    def __init__(self, paths1: List[str], paths2: List[str]):
+        self._streams = (NativeFastxStream(paths1), NativeFastxStream(paths2))
+        self._mate = ThreadPoolExecutor(max_workers=1)
+
+    def read_batch(self, batch_size: int):
+        mate = self._mate.submit(self._streams[1].read_batch, batch_size)
+        try:
+            batch1 = self._streams[0].read_batch(batch_size)
+        finally:
+            # no reader closes while the mate's read runs
+            futures.wait([mate])
+        return batch1, mate.result()
+
+    def close(self) -> None:
+        self._mate.shutdown()
+        for stream in self._streams:
+            stream.close()
+
+    def __del__(self):
+        self.close()
 
 
 def native_postprocess_write(cfg, ref_names: List[bytes], arrays: dict,

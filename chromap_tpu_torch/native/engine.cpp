@@ -4214,6 +4214,194 @@ struct FastxReader {
     }
     return n;
   }
+
+  // ---- the named batch: ReadBatch's reads with their names, parsed as
+  // the port's Python FastxReader parses them (io/fastx.py), errors
+  // included. Its own line readers, so ReadBatch's path is untouched.
+  std::vector<char> names_bufs[2];        // concatenated batch names
+  std::vector<int64_t> name_offsets_bufs[2];  // n+1
+  std::string pending;  // a header line read past the end of a FASTA record
+  bool has_pending = false;
+  std::string error;    // set by a failed ReadBatchNamed
+  int error_kind = 0;   // -1 malformed record, -2 the input ended badly
+
+  static bool IsSpace(char c) {
+    return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == '\v' ||
+           c == '\f';
+  }
+
+  // Refill that tells a truncated gzip stream from its end
+  bool NamedRefill() {
+    if (eof) return false;
+    int n = plain ? (int)fread(buf.data(), 1, buf.size(), plain)
+                  : gzread(f, buf.data(), (unsigned)buf.size());
+    if (n > 0) {
+      len = (size_t)n;
+      pos = 0;
+      return true;
+    }
+    eof = true;
+    int errnum = Z_OK;
+    const char* msg = plain ? nullptr : gzerror(f, &errnum);
+    if (n < 0 || (plain && ferror(plain)) ||
+        (!plain && errnum != Z_OK && errnum != Z_STREAM_END)) {
+      error = msg && *msg ? msg : "read error";
+      error_kind = -2;
+    }
+    return false;
+  }
+
+  // one line without its '\n' and with every trailing '\r' stripped
+  // (Python's rstrip(b"\r\n")); false at EOF with nothing read
+  bool NamedLine(std::string& out) {
+    out.clear();
+    bool any = false;
+    while (pos < len || NamedRefill()) {
+      any = true;
+      char* at = buf.data() + pos;
+      char* nl = (char*)memchr(at, '\n', len - pos);
+      if (nl) {
+        out.append(at, nl - at);
+        pos = nl - buf.data() + 1;
+        break;
+      }
+      out.append(at, len - pos);
+      pos = len;
+    }
+    while (!out.empty() && out.back() == '\r') out.pop_back();
+    return any;
+  }
+
+  // NamedLine appended to `sink`
+  void NamedLineInto(std::vector<char>& sink) {
+    size_t start = sink.size();
+    while (pos < len || NamedRefill()) {
+      char* at = buf.data() + pos;
+      char* nl = (char*)memchr(at, '\n', len - pos);
+      if (nl) {
+        sink.insert(sink.end(), at, nl);
+        pos = nl - buf.data() + 1;
+        break;
+      }
+      sink.insert(sink.end(), at, buf.data() + len);
+      pos = len;
+    }
+    while (sink.size() > start && sink.back() == '\r') sink.pop_back();
+  }
+
+  void NamedSkip() {
+    while (pos < len || NamedRefill()) {
+      char* at = buf.data() + pos;
+      char* nl = (char*)memchr(at, '\n', len - pos);
+      if (nl) {
+        pos = nl - buf.data() + 1;
+        return;
+      }
+      pos = len;
+    }
+  }
+
+  // kseq's name from the header past its '@' or '>': leading whitespace
+  // skipped, cut at the next whitespace (Python's split()[0])
+  static void AppendName(const char* b, const char* e, std::vector<char>& out) {
+    while (b < e && IsSpace(*b)) ++b;
+    const char* j = b;
+    while (j < e && !IsSpace(*j)) ++j;
+    out.insert(out.end(), b, j);
+  }
+
+  // one plain 4-line FASTQ record that lies whole in the buffer, parsed in
+  // place: 1 appended, 0 skipped (empty sequence), or -1 where the line
+  // parser must take it (a record across the buffer's end, a blank line,
+  // FASTA, a malformed record)
+  int FastRecord(std::vector<char>& seqs, std::vector<char>& names) {
+    char* p = buf.data() + pos;
+    char* end = buf.data() + len;
+    if (p >= end || *p != '@') return -1;
+    char* e1 = (char*)memchr(p, '\n', end - p);
+    if (!e1) return -1;
+    char* e2 = (char*)memchr(e1 + 1, '\n', end - e1 - 1);
+    if (!e2 || e2 + 1 >= end || e2[1] != '+') return -1;
+    char* e3 = (char*)memchr(e2 + 1, '\n', end - e2 - 1);
+    if (!e3) return -1;
+    char* e4 = (char*)memchr(e3 + 1, '\n', end - e3 - 1);
+    if (!e4) return -1;
+    pos = e4 + 1 - buf.data();
+    char* se = e2;
+    while (se > e1 + 1 && se[-1] == '\r') --se;
+    if (se == e1 + 1) return 0;
+    seqs.insert(seqs.end(), e1 + 1, se);
+    AppendName(p + 1, e1, names);
+    return 1;
+  }
+
+  // returns #records loaded (<= max_n; fewer only at the end of the file),
+  // or error_kind with `error` set
+  int64_t ReadBatchNamed(int64_t max_n) {
+    cur ^= 1;
+    std::vector<char>& seqs = seqs_bufs[cur];
+    std::vector<int64_t>& offsets = offsets_bufs[cur];
+    std::vector<char>& names = names_bufs[cur];
+    std::vector<int64_t>& name_offsets = name_offsets_bufs[cur];
+    seqs.clear();
+    offsets.assign(1, 0);
+    names.clear();
+    name_offsets.assign(1, 0);
+    std::string line, aux;
+    int64_t n = 0;
+    while (n < max_n && !error_kind) {
+      if (!has_pending) {
+        int got = FastRecord(seqs, names);
+        if (got >= 0) {
+          if (got) {
+            offsets.push_back((int64_t)seqs.size());
+            name_offsets.push_back((int64_t)names.size());
+            ++n;
+          }
+          continue;
+        }
+      }
+      if (has_pending) {
+        line.swap(pending);
+        has_pending = false;
+      } else if (!NamedLine(line)) {
+        break;
+      }
+      if (line.empty()) continue;
+      size_t before = seqs.size();
+      if (line[0] == '@') {
+        NamedLineInto(seqs);
+        if (!NamedLine(aux) || aux.empty() || aux[0] != '+') {
+          if (!error_kind) {
+            error = "Malformed FASTQ";
+            error_kind = -1;
+          }
+          break;
+        }
+        NamedSkip();  // the quality line
+      } else if (line[0] == '>') {
+        // FASTA: sequence lines up to the next header, which is kept
+        while (NamedLine(aux)) {
+          if (!aux.empty() && (aux[0] == '>' || aux[0] == '@')) {
+            pending.swap(aux);
+            has_pending = true;
+            break;
+          }
+          seqs.insert(seqs.end(), aux.begin(), aux.end());
+        }
+      } else {
+        error = "Unrecognized record start";
+        error_kind = -1;
+        break;
+      }
+      if (seqs.size() == before) continue;  // kseq skips empty records
+      AppendName(line.data() + 1, line.data() + line.size(), names);
+      offsets.push_back((int64_t)seqs.size());
+      name_offsets.push_back((int64_t)names.size());
+      ++n;
+    }
+    return error_kind ? error_kind : n;
+  }
 };
 
 // --------------------------- postprocess + write ---------------------------
@@ -4393,6 +4581,24 @@ int64_t cn_fastx_read_batch(FastxReader* r, int64_t max_n,
   int64_t n = r->ReadBatch(max_n);
   *seq_bytes = r->seqs_bufs[r->cur].data();
   *offsets = r->offsets_bufs[r->cur].data();
+  return n;
+}
+
+// cn_fastx_read_batch with the reads' names: n, or -1 (a malformed record)
+// or -2 (the input ended badly) with *error set. The batch stays valid
+// until the second call after this one.
+int64_t cn_fastx_read_batch_named(FastxReader* r, int64_t max_n,
+                                  const char** seq_bytes,
+                                  const int64_t** offsets,
+                                  const char** names,
+                                  const int64_t** name_offsets,
+                                  const char** error) {
+  int64_t n = r->ReadBatchNamed(max_n);
+  *seq_bytes = r->seqs_bufs[r->cur].data();
+  *offsets = r->offsets_bufs[r->cur].data();
+  *names = r->names_bufs[r->cur].data();
+  *name_offsets = r->name_offsets_bufs[r->cur].data();
+  *error = r->error.c_str();
   return n;
 }
 

@@ -11,6 +11,7 @@ falls back to this exact host path per-read where capacities overflow.
 
 from __future__ import annotations
 
+import gzip
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -32,11 +33,31 @@ from .mapping.postprocess import (allocate_multi_mappings, apply_tn5_shift,
 from .mapping.rng import MT19937
 from .mapping.select import (BestMappingSelector, PairContext,
                              PairedVerifyState)
+from .native import NativeFastxPairStream, NativeReadBatch
 from .utils import generate_seed_from_codes, reverse_complement_ascii
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr)
+
+
+def _blob(reads) -> Tuple[bytes, np.ndarray]:
+    """Reads (bytes or bytearrays) as one blob of bases and its n+1 int64
+    offsets, the form the native engine takes."""
+    offsets = np.zeros(len(reads) + 1, dtype=np.int64)
+    np.cumsum([len(r) for r in reads], out=offsets[1:])
+    return b"".join(reads), offsets
+
+
+def _starts_fastq(path: str) -> bool:
+    """Whether the file's first byte, after gunzip, is a FASTQ '@'."""
+    with open(path, "rb") as raw:
+        if raw.read(2) != b"\x1f\x8b":
+            raw.seek(0)
+            return raw.read(1) == b"@"
+        raw.seek(0)
+        with gzip.GzipFile(fileobj=raw) as f:
+            return f.read(1) == b"@"
 
 
 def _count_cpu_chunk(n: int) -> None:
@@ -555,14 +576,21 @@ class MappingPipeline:
                         else "CPU (plain torch)")
                 log(f"Using {kind} Myers verification (batch engine).")
 
+        native_reads = self._native_pair_stream(native_engine)
         generator = MT19937(11)
         t_map = time.time()
         while True:
             with tracing.span("records.read"):
-                batch1 = stream1.read_batch(cfg.read_batch_size)
-                batch2 = stream2.read_batch(cfg.read_batch_size)
-                batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
-                            if stream_bc else None)
+                if native_reads is not None:
+                    batch1, batch2 = native_reads.read_batch(
+                        cfg.read_batch_size)
+                    batch_bc = None
+                    tracing.count("records.native_batches")
+                else:
+                    batch1 = stream1.read_batch(cfg.read_batch_size)
+                    batch2 = stream2.read_batch(cfg.read_batch_size)
+                    batch_bc = (stream_bc.read_batch(cfg.read_batch_size)
+                                if stream_bc else None)
             if len(batch1) != len(batch2) or (
                     batch_bc is not None and len(batch_bc) != len(batch1)):
                 raise RuntimeError("Numbers of reads and barcodes don't match!")
@@ -653,6 +681,8 @@ class MappingPipeline:
                                                          nonwhitelist_count)
             self._maybe_spill()
             log(f"Mapped {len(batch1)} read pairs.")
+        if native_reads is not None:
+            native_reads.close()
         if batch_mapper is not None:
             self.num_candidates += batch_mapper.stats_num_candidates
             self.num_mappings += batch_mapper.stats_num_mappings
@@ -673,6 +703,25 @@ class MappingPipeline:
         self._output_summary()
         self._debug_cache_stats(native_engine, paired=True)
         writer.close()
+
+    def _native_pair_stream(self, native_engine):
+        """The paired records loop's reads, read natively as blobs of bases
+        and names (NativeFastxPairStream), where every batch goes to
+        _map_batch_native or _map_batch_native_pairs as is: the native
+        engine maps, the inputs are FASTQ as written (no --read-format),
+        bulk (no barcodes, whose correction needs the records) and not
+        sharded, and the output is BED, TagAlign or .pairs (SAM and PAF
+        take per-read bases and qualities). None keeps the Python reader
+        and its SequenceRecords."""
+        cfg = self.cfg
+        if (native_engine is None or cfg.read_format
+                or not cfg.is_bulk_data or cfg.num_shards != 1
+                or cfg.output_format not in ("bed", "tagalign", "pairs")
+                or not all(map(_starts_fastq, cfg.read_file1_paths
+                               + cfg.read_file2_paths))):
+            return None
+        return NativeFastxPairStream(cfg.read_file1_paths,
+                                     cfg.read_file2_paths)
 
     @staticmethod
     def _minimizer_arrays(minimizers):
@@ -1355,10 +1404,13 @@ class MappingPipeline:
     def _map_pairs_hybrid(self, engine, reads1, reads2, base_read_id: int,
                           threshold: int, full: bool = False,
                           sam: bool = False, want_info: bool = False):
-        """map_pairs / map_pairs_full with device-eligible chunks routed
-        through the device seeder (records flows: barcoded, low-mem,
-        summary, PAF/SAM/pairs). The group scheduler keeps selections in
-        batch order, so the mapping records equal the host-only call's
+        """map_pairs_raw / map_pairs_full_raw with device-eligible chunks
+        routed through the device seeder (records flows: barcoded,
+        low-mem, summary, PAF/SAM/pairs). reads1 and reads2 are each a
+        blob of bases (bytes, or a pointer into a native reader's buffers)
+        and its n+1 int64 offsets (_blob). The group scheduler keeps
+        selections in batch order, so the mapping records equal the
+        host-only call's
         (device chunks skip the host candidate cache, so only cache-hit
         counters can differ on cache-active data; see ARCHITECTURE.md).
 
@@ -1367,19 +1419,26 @@ class MappingPipeline:
         import ctypes as _ct
 
         cfg = self.cfg
-        n = len(reads1)
+        r1_bytes, o1 = reads1
+        r2_bytes, o2 = reads2
+        n = len(o1) - 1
         C = min(cfg.device_batch_size, cfg.read_batch_size)
         use_dev = (cfg.use_device and n > C
                    and self._get_seeder() is not None)
+
+        def off_ptr(o, s):
+            return _ct.c_void_p(o.ctypes.data + 8 * s)
+
         if not use_dev:
             with tracing.span("native.cpu_map", tracing.chunk_ids(1)):
                 if full:
-                    out, stats, aux = engine.map_pairs_full(
-                        reads1, reads2, base_read_id, threshold,
-                        sam_aux=sam)
+                    out, stats, aux = engine.map_pairs_full_raw(
+                        r1_bytes, off_ptr(o1, 0), r2_bytes, off_ptr(o2, 0),
+                        n, base_read_id, threshold, sam_aux=sam)
                 else:
-                    out, stats = engine.map_pairs(reads1, reads2,
-                                                  base_read_id, threshold)
+                    out, stats = engine.map_pairs_raw(
+                        r1_bytes, off_ptr(o1, 0), r2_bytes, off_ptr(o2, 0),
+                        n, base_read_id, threshold)
                     aux = None
             _count_cpu_chunk(n)
             if not want_info:
@@ -1391,13 +1450,6 @@ class MappingPipeline:
                 info.tl1, info.tl2 = engine.get_pair_trimmed_lengths()
             return out, stats, info
 
-        with tracing.span("records.pack"):
-            r1_bytes = b"".join(reads1)
-            r2_bytes = b"".join(reads2)
-            o1 = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum([len(r) for r in reads1], out=o1[1:])
-            o2 = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum([len(r) for r in reads2], out=o2[1:])
         bounds = [(s, min(s + C, n)) for s in range(0, n, C)]
         nb = len(bounds)
         c0 = tracing.chunk_ids(nb)
@@ -1409,9 +1461,6 @@ class MappingPipeline:
         tl2 = (np.zeros(n, dtype=np.uint16)
                if want_info and cfg.trim_adapters else None)
         stats_sum = np.zeros(5, dtype=np.int64)
-
-        def off_ptr(o, s):
-            return _ct.c_void_p(o.ctypes.data + 8 * s)
 
         def side_channels(ci):
             s, e = bounds[ci]
@@ -1448,7 +1497,7 @@ class MappingPipeline:
         def submit_dev(ci):
             s, e = bounds[ci]
             nn = e - s
-            L = len(reads1[s])
+            L = int(o1[s + 1] - o1[s])
             if not (30 <= L <= 230):
                 return None
             W = (L + 15) // 16 + (L + 31) // 32
@@ -1687,11 +1736,17 @@ class MappingPipeline:
         from .summary import CACHEHIT, TOTAL
 
         with tracing.span("records.pack"):
-            reads1 = [bytes(r.seq) for r in batch1]
-            reads2 = [bytes(r.seq) for r in batch2]
-            # sharded batches have strided read ids: map indices explicitly
-            orig_ids = np.asarray([r.read_id for r in batch1],
-                                  dtype=np.uint32)
+            if isinstance(batch1, NativeReadBatch):
+                reads1 = batch1.bases, batch1.offsets
+                reads2 = batch2.bases, batch2.offsets
+                orig_ids = batch1.read_ids()
+            else:
+                reads1 = _blob([r.seq for r in batch1])
+                reads2 = _blob([r.seq for r in batch2])
+                # sharded batches have strided read ids: map indices
+                # explicitly
+                orig_ids = np.asarray([r.read_id for r in batch1],
+                                      dtype=np.uint32)
         out, stats = self._map_pairs_hybrid(engine, reads1, reads2, 0,
                                             threshold)
         with tracing.span("records.emit"):
@@ -1817,9 +1872,10 @@ class MappingPipeline:
         with tracing.span("records.pack"):
             reads1, reads2, barcodes, sel = self._native_barcode_prefilter(
                 batch1, batch2, batch_bc)
+            blob1, blob2 = _blob(reads1), _blob(reads2)
         if not reads1:
             return
-        out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
+        out, stats, info = self._map_pairs_hybrid(engine, blob1, blob2,
                                                   0, threshold,
                                                   want_info=True)
         with tracing.span("records.emit"):
@@ -1873,9 +1929,10 @@ class MappingPipeline:
                 barcodes = None
                 sel = list(range(len(batch1)))
                 base_read_id = batch1[0].read_id if batch1 else 0
+            blob1, blob2 = _blob(reads1), _blob(reads2)
         if not reads1:
             return
-        out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
+        out, stats, info = self._map_pairs_hybrid(engine, blob1, blob2,
                                                   base_read_id, threshold,
                                                   want_info=True)
         with tracing.span("records.emit"):
@@ -1942,9 +1999,10 @@ class MappingPipeline:
                 barcodes = None
                 sel = list(range(len(batch1)))
                 base_read_id = batch1[0].read_id if batch1 else 0
+            blob1, blob2 = _blob(reads1), _blob(reads2)
         if not reads1:
             return
-        out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
+        out, stats, info = self._map_pairs_hybrid(engine, blob1, blob2,
                                                   base_read_id, threshold,
                                                   full=True, sam=True,
                                                   want_info=True)
@@ -2044,26 +2102,44 @@ class MappingPipeline:
             engine.set_split_mode()
             engine._split_mode_set = True
 
+        barcodes = None
         with tracing.span("records.pack"):
-            if batch_bc is not None:
-                reads1, reads2, barcodes, sel = \
-                    self._native_barcode_prefilter(batch1, batch2, batch_bc)
-                base_read_id = 0
+            if isinstance(batch1, NativeReadBatch):
+                blob1 = batch1.bases, batch1.offsets
+                blob2 = batch2.bases, batch2.offsets
+                base_read_id = batch1.first_id
+                names = batch1.names
+                name_at = batch1.name_offsets.tolist()
+
+                def read_of(j):
+                    return (base_read_id + j,
+                            names[name_at[j]:name_at[j + 1]])
             else:
-                reads1 = [bytes(r.seq) for r in batch1]
-                reads2 = [bytes(r.seq) for r in batch2]
-                barcodes = None
-                sel = list(range(len(batch1)))
-                base_read_id = batch1[0].read_id if batch1 else 0
-        if not reads1:
+                if batch_bc is not None:
+                    reads1, reads2, barcodes, sel = \
+                        self._native_barcode_prefilter(batch1, batch2,
+                                                       batch_bc)
+                    base_read_id = 0
+                else:
+                    reads1 = [r.seq for r in batch1]
+                    reads2 = [r.seq for r in batch2]
+                    sel = range(len(batch1))
+                    base_read_id = batch1[0].read_id if batch1 else 0
+                blob1, blob2 = _blob(reads1), _blob(reads2)
+
+                def read_of(j):
+                    rec = batch1[sel[j]]
+                    return int(rec.read_id), rec.name
+        n = len(blob1[1]) - 1
+        if not n:
             return
-        out, stats, info = self._map_pairs_hybrid(engine, reads1, reads2,
+        out, stats, info = self._map_pairs_hybrid(engine, blob1, blob2,
                                                   base_read_id, threshold,
                                                   full=True,
                                                   want_info=True)
         with tracing.span("records.emit"):
             if batch_bc is not None:
-                self._native_barcode_cachehits(engine, out, len(reads1),
+                self._native_barcode_cachehits(engine, out, n,
                                                barcodes, flags=info.flags)
             rank = self.pairs_custom_rid_rank
             rid_a = out["rid"]
@@ -2075,8 +2151,7 @@ class MappingPipeline:
             o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
             for i in range(len(rid_a)):
                 j = o_read_id[i] - base_read_id
-                bj = sel[j]
-                read_id = int(batch1[bj].read_id)
+                read_id, read_name = read_of(j)
                 rid = o_rid[i]
                 first_negative = o_dir[i] == 0
                 second_negative = o_dir2[i] == 0
@@ -2091,7 +2166,7 @@ class MappingPipeline:
                     pos1, pos2 = pos2, pos1
                     strand1, strand2 = strand2, strand1
                 emit(rid1, PairsRecord(
-                    read_id=read_id, read_name=batch1[bj].name,
+                    read_id=read_id, read_name=read_name,
                     barcode=(int(barcodes[j]) if barcodes is not None else 0),
                     rid1=rid1, rid2=rid2, pos1=pos1, pos2=pos2,
                     strand1=strand1, strand2=strand2,

@@ -34,8 +34,10 @@ Spans (per pass, chunk, group or stage, never per read):
 
     pass             the whole map_paired_end / map_single_end call (root)
     fastq.wait       the main thread waiting for the next native FASTQ batch
-    records.read     parsing a batch of FASTQ records (records flows)
-    records.pack     a batch's read bytes as lists, joined and offset
+    records.read     reading a batch of FASTQ records (records flows),
+                     natively or as Python records
+    records.pack     a batch's bases as one blob with its offsets, and
+                     its read ids
     hybrid           one _map_pairs_hybrid / _map_single_hybrid call
     hybrid.copy      copying a chunk out of the reader's buffers
     hybrid.flush     one group of the hybrid scheduler
@@ -63,7 +65,10 @@ mapped on the host from the start), pairs.cpu (their pairs, reads in
 single-end runs), hybrid.flushes and hybrid.group_sum (one a group, and
 the group size G the scheduler had set for it), seeder.probe_kernel
 (chunks submitted whose index probe ran through kernel E,
-ops/device_seed.py `index_probe`), and in low-memory mode
+ops/device_seed.py `index_probe`), records.native_batches (a read of the
+paired records flow that the native reader made, pipeline.py
+`_native_pair_stream`: one a records.read span where it engages, none
+where it does not), and in low-memory mode
 lowmem.spills (spill files written), lowmem.spill_rows (the rows written
 to them), lowmem.merge_rows_out (the lines the merge wrote) and
 lowmem.merge_per_record (once a merge that took the per-record Python

@@ -4,8 +4,9 @@ CHROMAP_TPU_HYBRID_PROFILE set, a full-native BED run, a `--preset hic`
 run and a `--preset chip` run (the records flow, with low-memory spill
 and merge) each print one HYBRID_PROFILE line a pass, with the spans and
 counters the flow takes; the spans nest and their self times add up;
-the output stage's C++ stamps nest inside output.native; the outputs
-equal the untraced run's. Unset, nothing is printed or kept. The clock
+the output stage's C++ stamps nest inside output.native; the records
+flows read their FASTQ natively, one records.native_batches a
+records.read; the outputs equal the untraced run's. Unset, nothing is printed or kept. The clock
 anchor is held against a CPU-only torch.profiler."""
 
 import json
@@ -43,8 +44,10 @@ COUNTERS = {"chunks.dev", "chunks.cpu", "pairs.cpu", "hybrid.flushes",
 RECORDS_SPANS = DEVICE_SPANS | {"records.read", "records.pack", "hybrid",
                                 "records.emit", "lowmem.spill",
                                 "lowmem.merge"}
+# the records flows' FASTQ read natively (records.native_batches)
 LOWMEM_COUNTERS = COUNTERS | {"lowmem.spills", "lowmem.spill_rows",
-                              "lowmem.merge_rows_out"}
+                              "lowmem.merge_rows_out",
+                              "records.native_batches"}
 FLOWS = {
     # full-native BED: native FASTQ reader, the hybrid scheduler's slot
     # copies, the native output stage
@@ -162,6 +165,15 @@ def test_spans_nest_and_self_times_add_up(runs, flow):
     for name in ("seeder.pack", "hybrid.wait", "native.finish"):
         assert sorted(by_name[name]) == submitted, name
     assert not set(submitted) & set(by_name["native.cpu_map"])
+
+
+@pytest.mark.parametrize("flow", ["chip", "hic"])
+def test_native_reads_count_one_a_records_read(runs, flow):
+    line = runs[flow, True]["lines"][0]
+    reads = line["spans"]["records.read"][0]
+    # the 5000 pairs in one batch, then the read that finds none
+    assert reads == 2
+    assert line["counters"]["records.native_batches"] == reads
 
 
 def test_output_stamps_nest_inside_output_native(runs):
