@@ -65,13 +65,11 @@ Phases, in order (any failure exits non-zero before the last line):
            output must equal its golden; each seeder flow must seed a
            chunk on the card, each batch flow launch kernel B.
   chunk    one 16384-pair chunk of the path's data, and one of the Hi-C
-           reads in split mode, seeded by the port on CUDA and by its
-           plain path on the CPU, with the default probe (kernel E on
-           CUDA, the merged sort on the CPU), the bucketed one
-           (CHROMAP_TPU_PROBE=bucket) and searchsorted (=sortss): all six
-           downloads must be byte-equal. Times and profiles each probe's
+           reads in split mode, seeded by the port on CUDA (kernel E's
+           probe) and by its plain path on the CPU (the merged sort):
+           both downloads must be byte-equal. Times and profiles the CUDA
            step, and times the probe alone on the 141 Mb index: kernel E
-           must equal the merged sort.
+           must equal the merged sort, searchsorted its yardstick.
   mesh     the data mesh (parallel/sharding.py, MeshSeeder) rehearsed as
            shards of the one card: sharded_myers over [cuda:0, cuda:0] at
            N = 65536 equal to kernel B's plain version; the chunk phase's
@@ -1202,12 +1200,10 @@ def phase_chunk(results: dict) -> None:
 
 def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
                split: bool) -> dict:
-    """One 16384-pair chunk through the default step (kernel E on CUDA,
-    the merged sort on the CPU), the bucketed step (CHROMAP_TPU_PROBE=
-    bucket) and the searchsorted step (=sortss), each on CUDA and on the
-    CPU: all six downloads must be byte-equal, and the default CUDA step
-    must launch kernel E once. Returns each probe's kernel ms under the
-    profiler, and the probes alone."""
+    """One 16384-pair chunk through the step on CUDA (kernel E) and on
+    the CPU (the merged sort): both downloads must be byte-equal, and the
+    CUDA step must launch kernel E once. Returns the CUDA step's kernel
+    ms under the profiler, and the probes alone."""
     import numpy as np
     import torch
     from chromap_tpu_torch.ops import device_seed as ds
@@ -1216,67 +1212,48 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     B, L = codes.shape
     rw = ds._pack_reads(codes)
     outs, steps, kept = {}, {}, {}
-    e_table = None
-    for probe, mode in (("default", None), ("bucketed", "bucket"),
-                        ("searchsorted", "sortss")):
-        if mode is not None:
-            os.environ["CHROMAP_TPU_PROBE"] = mode
-        try:
-            for dev in ("cuda", "cpu"):
-                seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
-                                         device=dev, split=split)
-                t0 = time.time()
-                n0 = ds.index_probe.launches
-                h = seeder.submit_packed(rw, B, L)
-                r = seeder.resolve(h)
-                dt = time.time() - t0
-                e_launches = ds.index_probe.launches - n0
-                if e_launches != int(probe == "default" and dev == "cuda"):
-                    raise AssertionError(f"{label} {probe} {dev}: kernel E "
-                                         f"launched {e_launches} times")
-                (dl, full, _, _), _, _ = h
-                outs[probe, dev] = (dl.cpu().numpy().tobytes(),
-                                    full.cpu().numpy().tobytes(), r)
-                if dev == "cpu":
-                    log(f"{label} {probe}: CPU plain step {1e3 * dt:.1f} ms")
-                    continue
-                if probe == "default":
-                    e_table = seeder.probe_table
-                    nb = e_table.numel() - 1
-                    log(f"{label}: kernel E's table tbits="
-                        f"{nb.bit_length() - 1}, "
-                        f"{e_table.numel() * 4 / 2**20:.1f} MiB, "
-                        f"{seeder.hash_keys.numel() / nb:.2f} keys a bucket")
-                if probe == "default" and not split:
-                    tier = {torch.int32: "u32", torch.int64: "u64"}
-                    log(f"{label}: index tiers offcnt "
-                        f"{tier[seeder.offcnt.dtype]}, occurrences "
-                        f"{tier[seeder.occurrences.dtype]} "
-                        f"({seeder.hash_keys.numel()} keys, "
-                        f"{seeder.occurrences.numel()} occurrences)")
-                if probe == "bucketed":
-                    shift, depth = seeder.probe
-                    mib = (seeder.probe_table.numel() * 4
-                           + seeder.keys_lo.numel() * 4) / 2**20
-                    log(f"{label}: bucketed probe tbits={2 * seeder.k - shift}"
-                        f" shift={shift} depth={depth}; table "
-                        f"{seeder.probe_table.numel() * 4 / 2**20:.1f} MiB, "
-                        f"with the keys' u32 low words {mib:.1f} MiB")
-                step_s = host_median(
-                    lambda: seeder.resolve(seeder.submit_packed(rw, B, L)))
-                steps[probe] = 1e3 * step_s
-                log(f"{label} {probe}: CUDA step (submit+resolve) "
-                    f"{1e3 * step_s:.2f} ms median of 5 ({B} rows, L={L}, "
-                    f"e={e}, split={split}); first call {1e3 * dt:.1f} ms")
-                kept[probe] = profile_step(seeder, rw, B, L,
-                                           f"{label} {probe}")
-                if probe == "bucketed" and not split:
-                    kept["probe_alone_ms"] = time_probes(seeder, e_table,
-                                                         label)
-                del seeder
-                torch.cuda.empty_cache()
-        finally:
-            os.environ.pop("CHROMAP_TPU_PROBE", None)
+    probe = "default"
+    for dev in ("cuda", "cpu"):
+        seeder = ds.DeviceSeeder(index, ref_seqs, e, 2, (500, 1000),
+                                 device=dev, split=split)
+        t0 = time.time()
+        n0 = ds.index_probe.launches
+        h = seeder.submit_packed(rw, B, L)
+        r = seeder.resolve(h)
+        dt = time.time() - t0
+        e_launches = ds.index_probe.launches - n0
+        if e_launches != int(dev == "cuda"):
+            raise AssertionError(f"{label} {dev}: kernel E launched "
+                                 f"{e_launches} times")
+        (dl, full, _, _), _, _ = h
+        outs[probe, dev] = (dl.cpu().numpy().tobytes(),
+                            full.cpu().numpy().tobytes(), r)
+        if dev == "cpu":
+            log(f"{label} {probe}: CPU plain step {1e3 * dt:.1f} ms")
+            continue
+        e_table = seeder.probe_table
+        nb = e_table.numel() - 1
+        log(f"{label}: kernel E's table tbits={nb.bit_length() - 1}, "
+            f"{e_table.numel() * 4 / 2**20:.1f} MiB, "
+            f"{seeder.hash_keys.numel() / nb:.2f} keys a bucket")
+        if not split:
+            tier = {torch.int32: "u32", torch.int64: "u64"}
+            log(f"{label}: index tiers offcnt "
+                f"{tier[seeder.offcnt.dtype]}, occurrences "
+                f"{tier[seeder.occurrences.dtype]} "
+                f"({seeder.hash_keys.numel()} keys, "
+                f"{seeder.occurrences.numel()} occurrences)")
+        step_s = host_median(
+            lambda: seeder.resolve(seeder.submit_packed(rw, B, L)))
+        steps[probe] = 1e3 * step_s
+        log(f"{label} {probe}: CUDA step (submit+resolve) "
+            f"{1e3 * step_s:.2f} ms median of 5 ({B} rows, L={L}, "
+            f"e={e}, split={split}); first call {1e3 * dt:.1f} ms")
+        kept[probe] = profile_step(seeder, rw, B, L, f"{label} {probe}")
+        if not split:
+            kept["probe_alone_ms"] = time_probes(seeder, label)
+        del seeder
+        torch.cuda.empty_cache()
     want = outs["default", "cuda"]
     same = {k: v[:2] == want[:2] for k, v in outs.items()}
     total = int(np.frombuffer(want[0][:4], np.uint32)[0])
@@ -1302,14 +1279,14 @@ def chunk_once(label: str, index, ref_seqs, reads: str, e: int,
     return kept
 
 
-def time_probes(seeder, e_table, label: str) -> dict:
+def time_probes(seeder, label: str) -> dict:
     """The index probe alone, by CUDA events, on the seeder's index at a
     chunk's query count (26 per read, as in the step), each with its
-    offcnt gather: kernel E (over `e_table`, the default CUDA seeder's),
-    the merged sort (E's plain version), the bucketed search and
-    searchsorted, on seeded queries of which about 60% are index keys and
+    offcnt gather: kernel E (over the CUDA seeder's bucket table), the
+    merged sort (E's plain version) and searchsorted, the library's
+    yardstick, on seeded queries of which about 60% are index keys and
     3% invalid (UMAX64). E must equal the merged sort on off, cnt and
-    found; the others must agree on found and cnt, and on off for every
+    found; searchsorted must agree on found and cnt, and on off for every
     valid query."""
     import torch
     from chromap_tpu_torch.bench import time_ms
@@ -1332,10 +1309,9 @@ def time_probes(seeder, e_table, label: str) -> dict:
         return (*ds._probe_gather(offcnt, loc, found), found)
 
     probes = {
-        "kernel E": lambda: ds.index_probe(keys, offcnt, q, e_table, k),
+        "kernel E": lambda: ds.index_probe(keys, offcnt, q,
+                                           seeder.probe_table, k),
         "merge-sort": lambda: ds.index_probe_plain(keys, offcnt, q, k),
-        "bucketed": lambda: gathered(ds._probe_bucketed(
-            seeder.probe_table, seeder.keys_lo, q, valid, *seeder.probe)),
         "searchsorted": lambda: gathered(
             ds._probe_searchsorted(keys, q, valid))}
     got = {n: f() for n, f in probes.items()}
@@ -1351,7 +1327,7 @@ def time_probes(seeder, e_table, label: str) -> dict:
         f"queries and {nk} keys (CUDA events, median of 10): " + ", ".join(
             f"{n} {t:.4f} ms" for n, t in ms.items())
         + f"; found {int(want[2].sum())}; kernel E equals the merged sort: "
-        f"{exact}; all four agree: {agree}")
+        f"{exact}; all three agree: {agree}")
     if not agree:
         raise AssertionError(f"{label}: the probes disagree")
     return ms

@@ -14,9 +14,9 @@ engine "auto", the native engine on every host core), best of N runs,
 each through a fresh pipeline:
 
   host      the native host engine alone (`use_device=False`)
-  device    the hybrid scheduler: the device seeds and verifies one chunk
-            of every group while the host maps the others
-            (`use_device=True` on `--torch-device`)
+  device    the device-chunk scheduler (hybrid.py): the host maps the
+            first chunk of every group, the device seeds and verifies the
+            others (`use_device=True` on `--torch-device`)
 
 Both take the candidate cache off (a `--device` run always does), so the
 two BED files must be byte-equal; the bench fails when they differ, when

@@ -13,10 +13,7 @@ on the device, what the native finish stage needs per read:
                and the key's offcnt word gathered in the same launch; its
                plain version, on the CPU, is one merged u64 sort
                (`_probe_merge_sort`), or searchsorted when the hash is
-               too wide to pack (k > 22 at large batches).
-               CHROMAP_TPU_PROBE=sortss forces searchsorted, and
-               CHROMAP_TPU_PROBE=bucket a torch binary search bounded by
-               the bucketed probe's table (`bucket_probe_table`)
+               too wide to pack (k > 22 at large batches)
   expansion    ragged occurrence-list gather with the uint32 candidate
                arithmetic of index.cc:491-505
   clustering   kernel C (`cluster_scan`): the exact sequential cluster
@@ -49,7 +46,6 @@ package's MeshSeeder shards them over its data mesh.
 from __future__ import annotations
 
 import functools
-import os
 import sys
 from typing import Tuple
 
@@ -251,52 +247,6 @@ def _bucket_table(keys: np.ndarray, k: int, tbits: int):
     return np.searchsorted(keys, bounds, side="left").astype(np.int32), shift
 
 
-def bucket_probe_table(keys: np.ndarray, k: int):
-    """The bucketed probe's table over sorted u64 `keys` (nk > 0), as the
-    JAX seeder builds it: bucket b of the top `tbits` bits of the 2k-bit
-    hash holds keys table[b]..table[b + 1] - 1. Returns (table int32
-    (2^tbits + 1,), shift = 2k - tbits, depth = the halvings that bound
-    a search inside the largest bucket)."""
-    # the search compares only the low `shift` bits via a u32 key copy,
-    # so the bucket must pin the rest: tbits >= 2k - 32
-    tbits = max(_table_bits(len(keys)), 2 * k - 32)
-    table, shift = _bucket_table(keys, k, tbits)
-    max_bucket = int(np.max(table[1:] - table[:-1]))
-    depth = max(1, int(np.ceil(np.log2(max(max_bucket, 1)))) + 1)
-    return table, shift, depth
-
-
-def _probe_bucketed(probe_table, keys_lo, mz_h, mz_valid, shift: int,
-                    depth: int):
-    """lower_bound of every query hash by a binary search inside its
-    bucket (the JAX seeder's bucketed probe): 2 + depth gathers of int32
-    words. Hash64 output is uniform, so `depth` halvings bound every
-    bucket; inside one bucket the keys share their top bits, so the
-    search compares the low `shift` (<= 32) bits of `keys_lo`, the keys'
-    u32 low words. Returns (loc int32 clamped to nk - 1, found)."""
-    nk = keys_lo.shape[0]
-    nb = probe_table.shape[0] - 1
-    smask = (1 << shift) - 1 if shift < 32 else M32
-    ql = mz_h & smask                                 # non-negative int64
-    bk = torch.clamp(srl64(mz_h, shift), max=nb - 1)
-    lo = probe_table[bk]
-    hi0 = probe_table[bk + 1]
-    hi = hi0
-    for _ in range(depth):
-        upd = lo < hi
-        mid = (lo + hi) >> 1                          # nk < 2^31: no wrap
-        gk = u32_of(keys_lo[torch.clamp(mid, max=nk - 1)]) & smask
-        right = gk < ql
-        lo = torch.where(upd & right, mid + 1, lo)
-        hi = torch.where(upd & ~right, mid, hi)
-    # the bucket pins the top bits, so a low-bits match at the converged
-    # lower bound is an exact key match
-    loc = torch.clamp(lo, max=nk - 1)
-    found = ((lo < hi0) & ((u32_of(keys_lo[loc]) & smask) == ql)
-             & mz_valid)
-    return loc, found
-
-
 def _probe_searchsorted(hash_keys, mz_h, mz_valid):
     """(loc clamped to nk - 1, found) of every query by unsigned
     searchsorted."""
@@ -492,15 +442,12 @@ STAGES = ("unpack", "kmer", "emission", "mzcompact", "probe", "agg",
 
 
 def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
-                num_refs: int, split: bool = False, probe=None,
-                stop: str | None = None):
+                num_refs: int, split: bool = False, stop: str | None = None):
     """Returns the batch step; the index/reference tensors are arguments,
     as in the JAX program. `split` verifies with drop-off Myers (Hi-C)
-    instead of banded Myers. `probe` picks the index probe: None kernel
-    E on CUDA, over its bucket table in `probe_table` (on the CPU the
-    merged sort, searchsorted where the hash is too wide to pack),
-    "sortss" searchsorted always, (shift, depth) the bucketed search,
-    which takes the `probe_table` and `keys_lo` tensors. `stop` (one of
+    instead of banded Myers. The index probe is kernel E on CUDA, over
+    its bucket table in `probe_table` (on the CPU the merged sort,
+    searchsorted where the hash is too wide to pack). `stop` (one of
     STAGES) truncates the step after the named stage and returns
     `_stage_out` of that stage's live outputs (profiling only); kernel A
     fuses the JAX program's `kmer` and `emission` stages, so both stop
@@ -510,7 +457,7 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
 
     def step(rw, lengths, hash_keys, offcnt, occurrences,
              ref_words, ref_nwords, ref_lens, ref_offsets,
-             probe_table=None, keys_lo=None, *,
+             probe_table=None, *,
              L: int, B: int, Mtot: int, Htot: int, captot: int):
         # rw: (B, W + WN) u32 rows as int32: W 2-bit-code words, then WN
         # N-bitmap words. The hit sort key packs row<<47 | strand<<46 |
@@ -564,24 +511,15 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
         # expansion metadata: row<<9 | pos<<1 | strand (row = lane)
         meta2 = (lane << 9) | (c_pos.to(I64) << 1) | (c_hi >> 31)
         mz_h = mz_h2.reshape(-1)                              # (Mtot,)
-        mz_valid = mz_valid2.reshape(-1)
         mz_packmeta = meta2.reshape(-1)
         if stop == "mzcompact":
             return _stage_out(mz_h, mz_packmeta)
 
         # ---- index probe -------------------------------------------------
-        if probe is None:
-            # kernel E on CUDA (probe_table is its bucket table), the
-            # merged sort on the CPU
-            off, cnt, found = index_probe(hash_keys, offcnt, mz_h,
-                                          probe_table, k)
-        else:
-            if probe == "sortss":
-                loc, found = _probe_searchsorted(hash_keys, mz_h, mz_valid)
-            else:
-                loc, found = _probe_bucketed(probe_table, keys_lo, mz_h,
-                                             mz_valid, *probe)
-            off, cnt = _probe_gather(offcnt, loc, found)
+        # kernel E on CUDA (probe_table is its bucket table), the merged
+        # sort on the CPU
+        off, cnt, found = index_probe(hash_keys, offcnt, mz_h, probe_table,
+                                      k)
         if stop == "probe":
             return _stage_out(off, cnt, found)
 
@@ -808,9 +746,8 @@ def _build_step(k: int, w: int, e: int, f0: int, f1: int, min_seeds: int,
 
 
 @functools.lru_cache(maxsize=8)
-def _cached_step(k, w, e, f0, f1, min_seeds, num_refs, split=False,
-                 probe=None):
-    return _build_step(k, w, e, f0, f1, min_seeds, num_refs, split, probe)
+def _cached_step(k, w, e, f0, f1, min_seeds, num_refs, split=False):
+    return _build_step(k, w, e, f0, f1, min_seeds, num_refs, split)
 
 
 def unpack_download(meta32: np.ndarray, cand64: np.ndarray, L: int):
@@ -951,8 +888,7 @@ def check_packed_bounds(num_refs: int, max_seed_frequencies) -> None:
 
 # the index/reference tensors, in the step's argument order
 INDEX_TENSORS = ("hash_keys", "offcnt", "occurrences", "ref_words",
-                 "ref_nwords", "ref_lens", "ref_offsets", "probe_table",
-                 "keys_lo")
+                 "ref_nwords", "ref_lens", "ref_offsets", "probe_table")
 
 
 def _count_probe_kernel(launches_before: int) -> None:
@@ -999,23 +935,11 @@ class DeviceSeeder:
         arrays = seeder_arrays_from_numpy(index, ref_seqs)
         for name, arr in arrays.items():
             setattr(self, name, _to_tensor(arr, self.device))
-        # the index probe, read from CHROMAP_TPU_PROBE when the seeder is
-        # built: by default kernel E, over its bucket table on CUDA (the
-        # merged sort, its plain version, on the CPU); "bucket" builds
-        # the bucketed search's table and the keys' u32 low words;
-        # "sortss" forces searchsorted
+        # kernel E's bucket table, on CUDA only: the CPU's plain probe,
+        # the merged sort, does not read it
         keys = arrays["hash_keys"]
-        mode = os.environ.get("CHROMAP_TPU_PROBE")
-        self.probe = "sortss" if mode == "sortss" else None
-        self.probe_table = self.keys_lo = None
-        if len(keys) > 0 and mode == "bucket":
-            table, shift, depth = bucket_probe_table(keys, self.k)
-            self.probe = (shift, depth)
-            self.probe_table = _to_tensor(table, self.device)
-            self.keys_lo = _to_tensor(
-                (keys & np.uint64(M32)).astype(np.uint32), self.device)
-        elif (len(keys) > 0 and self.probe is None
-              and self.device.type == "cuda"):
+        self.probe_table = None
+        if len(keys) > 0 and self.device.type == "cuda":
             self.probe_table = _to_tensor(index_probe_table(keys, self.k),
                                           self.device)
         self._lengths_cache = {}
@@ -1024,7 +948,7 @@ class DeviceSeeder:
         self.stats = dict(chunks=0, over_chunks=0, rows=0, fallback_rows=0)
         self._step = _cached_step(self.k, self.w, self.e, self.f0, self.f1,
                                   self.min_num_seeds, self.num_refs,
-                                  self.split, self.probe)
+                                  self.split)
 
     def submit(self, codes: np.ndarray, lengths: np.ndarray):
         """Dispatch one batch of (B, L) u8 codes; returns an opaque
@@ -1252,7 +1176,7 @@ def get_device_seeder(index, ref_seqs, error_threshold: int,
         return build()
     key = (cache_key, int(error_threshold), int(min_num_seeds),
            tuple(int(f) for f in max_seed_frequencies), n, split,
-           str(device), os.environ.get("CHROMAP_TPU_PROBE"))
+           str(device))
     seeder = _seeder_cache.get(key)
     if seeder is None:
         seeder = build()

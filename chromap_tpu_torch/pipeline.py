@@ -11,6 +11,7 @@ falls back to this exact host path per-read where capacities overflow.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import sys
 import time
@@ -20,6 +21,7 @@ import numpy as np
 
 from . import tracing
 from .config import IndexConfig, MappingConfig
+from .hybrid import Chunk, DeviceChunks, Flow
 from .index.index import MinimizerIndex, build_index
 from .index.minimizers import generate_minimizers
 from .io.fastx import (FastxReader, MultiFileFastxStream, SequenceRecord,
@@ -58,12 +60,6 @@ def _starts_fastq(path: str) -> bool:
         raw.seek(0)
         with gzip.GzipFile(fileobj=raw) as f:
             return f.read(1) == b"@"
-
-
-def _count_cpu_chunk(n: int) -> None:
-    """Counters of a chunk of `n` pairs (reads) mapped on the host."""
-    tracing.count("chunks.cpu")
-    tracing.count("pairs.cpu", n)
 
 
 def construct_index(cfg: IndexConfig) -> None:
@@ -149,6 +145,7 @@ class MappingPipeline:
     def __init__(self, cfg: MappingConfig):
         self.cfg = cfg
         self._device_seeder = None
+        self._device_chunks = None
         self.batch_mapper = None  # the batch engine of the last paired run
         if cfg.use_device:
             # fail before any mapping when the asked-for device, or the
@@ -395,7 +392,7 @@ class MappingPipeline:
                 and not cfg.low_memory_mode
                 and cfg.is_bulk_data and cfg.num_shards == 1
                 and cfg.output_format in ("bed", "tagalign")):
-            self._map_single_end_full_native(native_engine)
+            self._map_full_native(native_engine, paired=False)
             return
 
         t_map = time.time()
@@ -967,93 +964,113 @@ class MappingPipeline:
         self.num_mappings_in_mem = 0
 
     def _map_paired_end_full_native(self, engine) -> None:
-        """Native IO + mapping + postprocess + write; no Python per-read or
-        per-record objects anywhere on the hot path."""
-        import time as _time
+        """The paired-end full-native flow (`_map_full_native`)."""
+        self._map_full_native(engine, paired=True)
+
+    def _map_full_native(self, engine, paired: bool) -> None:
+        """Native FASTQ reading, mapping (cn_map_pairs or cn_map_single),
+        postprocess and write, with no Python per-read or per-record
+        objects anywhere on the hot path; under --device the chunks go
+        through the device-chunk scheduler."""
+        import ctypes as _ct
 
         from .native import NativeFastxReader, native_postprocess_write
 
         cfg = self.cfg
-        t_map = _time.time()
-        chunks: List[dict] = []
-        base_read_id = 0
+        t_map = time.time()
+        outs: List[dict] = []
+        if paired:
+            files = list(zip(cfg.read_file1_paths, cfg.read_file2_paths))
+            map_raw = engine.map_pairs_raw
+            map_seeded = engine.map_pairs_dev_seeded
+            pack = engine.lib.cn_pack_reads
+            cache, update_param = self.cache_paired, cfg.cache_update_param
+        else:
+            files = [(path,) for path in cfg.read_file1_paths]
+            map_raw = engine.map_single_raw
+            map_seeded = engine.map_single_dev_seeded
+            pack = engine.lib.cn_pack_reads_se
+            cache, update_param = self.cache_single, 0.01
 
         def account(out_stats):
             out, stats = out_stats
-            chunks.append(out)
+            outs.append(out)
             self.num_candidates += int(stats[0])
             self.num_mappings += int(stats[1])
             self.num_mapped_reads += int(stats[2])
             self.num_uniquely_mapped_reads += int(stats[3])
             self.cache_hits += int(stats[4])
 
-        # device runs use small fixed-size chunks so one compiled program
-        # shape serves every batch; the hybrid scheduler seeds every P-th
-        # chunk on the chip while the CPU phase-1s the others
-        batch_n = (min(cfg.read_batch_size, cfg.device_batch_size)
-                   if cfg.use_device else cfg.read_batch_size)
-        hyb = self._hybrid_state() if cfg.use_device else None
-        try:
-            for file_index in range(len(cfg.read_file1_paths)):
+        def map_host(chunk):
+            account(map_raw(*chunk.args(), chunk.n, chunk.base_read_id,
+                            chunk.threshold))
+
+        def finish(chunk, meta, cand_pos, cand_meta):
+            account(map_seeded(*chunk.args(), chunk.n, chunk.base_read_id,
+                               meta, cand_pos, cand_meta))
+
+        def chunks(batch_n: int):
+            """The reads in batches of batch_n, each a chunk that points
+            into its readers' buffers (valid until the batch after
+            next)."""
+            base_read_id = 0
+            for paths in files:
                 stream = self._PrefetchStream(
-                    [NativeFastxReader(cfg.read_file1_paths[file_index]),
-                     NativeFastxReader(cfg.read_file2_paths[file_index])],
-                    batch_n)
+                    [NativeFastxReader(path) for path in paths], batch_n)
                 try:
                     while True:
-                        (n1, b1, o1), (n2, b2, o2) = stream.next()
-                        if n1 != n2:
+                        batches = stream.next()
+                        n = batches[0][0]
+                        if any(b[0] != n for b in batches):
                             raise RuntimeError(
                                 "Numbers of reads and barcodes don't match!")
-                        if n1 == 0:
+                        if n == 0:
                             break
-                        self.num_reads += 2 * n1
-                        threshold = self.cache_paired.get_update_threshold(
-                            n1, self.num_reads, True, cfg.cache_update_param)
+                        self.num_reads += len(paths) * n
+                        threshold = cache.get_update_threshold(
+                            n, self.num_reads, paired, update_param)
                         self._debug_threshold(threshold)
-                        if hyb is not None:
-                            self._hybrid_step(engine, hyb, b1, o1, b2, o2,
-                                              n1, base_read_id, threshold,
-                                              account)
-                        else:
-                            with tracing.span("native.cpu_map",
-                                              tracing.chunk_ids(1)):
-                                account(engine.map_pairs_raw(
-                                    b1, o1, b2, o2, n1, base_read_id,
-                                    threshold))
-                            _count_cpu_chunk(n1)
-                        base_read_id += n1
-                        log(f"Mapped {n1} read pairs.")
+                        ends = tuple(
+                            (b, np.ctypeslib.as_array(
+                                _ct.cast(o, _ct.POINTER(_ct.c_int64)),
+                                shape=(n + 1,)))
+                            for _, b, o in batches)
+                        yield Chunk(ends, base_read_id, threshold,
+                                    tracing.chunk_ids(1))
+                        base_read_id += n
+                        log(f"Mapped {n} read pairs." if paired
+                            else f"Mapped {n} reads.")
                 finally:
                     # also when a device error propagates (it is never
                     # turned into a host run)
                     stream.close()
-            if hyb is not None:
-                self._hybrid_flush(engine, hyb, account, final=True)
-        finally:
-            if hyb is not None:
-                hyb["executor"].shutdown(wait=True)
-        log(f"Mapped all reads in {_time.time() - t_map:.2f}s.")
+
+        hyb = self._hybrid()
+        flow = Flow(pack, map_host, finish, copy=True)
+        if self._seeds_on_device(paired):
+            with contextlib.closing(chunks(hyb.size(len(files[0])))) as it:
+                hyb.run(it, flow, flush=self._hybrid_flush)
+        else:
+            for chunk in chunks(cfg.read_batch_size):
+                hyb.map_host(flow, chunk)
+        log(f"Mapped all reads in {time.time() - t_map:.2f}s.")
         self._output_stats()
 
         with tracing.span("output.concat"):
-            arrays = {key: (np.concatenate([c[key] for c in chunks])
-                            if chunks else np.empty(0))
-                      for key in (chunks[0] if chunks else
-                                  {"rid": None, "read_id": None,
-                                   "start": None, "flen": None,
-                                   "mapq": None, "dir": None, "uniq": None,
-                                   "posalen": None, "negalen": None})}
+            arrays = {key: (np.concatenate([o[key] for o in outs])
+                            if outs else np.empty(0))
+                      for key in ("rid", "read_id", "start", "flen", "mapq",
+                                  "dir", "uniq", "posalen", "negalen")}
         with tracing.span("output.native"):
             written, uni, multi = native_postprocess_write(
                 cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
-                dedup=cfg.remove_pcr_duplicates)
+                dedup=cfg.remove_pcr_duplicates, se_mode=not paired)
         if cfg.remove_pcr_duplicates:
             log(f"{uni + multi} mappings left after deduplication.")
         log(f"# uni-mappings: {uni}, # multi-mappings: {multi}, "
             f"total: {uni + multi}.")
         log(f"Number of output mappings (passed filters): {written}")
-        self._debug_cache_stats(engine, paired=True)
+        self._debug_cache_stats(engine, paired=paired)
 
     class _PrefetchStream:
         """Reads the next FASTQ batch on a worker thread while the current
@@ -1139,236 +1156,56 @@ class MappingPipeline:
             log(f"Using {kind} device seeding + verification{mesh_note}.")
         return self._device_seeder or None
 
-    def _hybrid_state(self) -> dict:
-        """Scheduler state for the device/CPU hybrid mapping loop.
+    def _hybrid(self) -> DeviceChunks:
+        """The pipeline's device-chunk scheduler (hybrid.py); its group
+        size carries over from pass to pass."""
+        if self._device_chunks is None:
+            self._device_chunks = DeviceChunks(
+                self._get_seeder, self.cfg.device_batch_size,
+                self.cfg.read_batch_size)
+        return self._device_chunks
 
-        Chunks buffer in arrival order into pooled raw copies in groups
-        of G (= device_hybrid_period). The LAST chunk of each group
-        dispatches to the device and the CPU maps the first G-1 through
-        the fused native path while the chip computes. Selection order
-        (and the single mt19937 stream, and the output) is preserved
-        exactly because group k's device chunk finishes BEFORE group
-        k+1's CPU chunks map -- but it is submitted one group early, so
-        the device works back-to-back across groups while the CPU never
-        stops: submit d_{k+1}, finish d_k, fuse-map group k+1's CPU
-        chunks, repeat. A worker thread absorbs the d2h transfer waits.
-        """
-        from concurrent.futures import ThreadPoolExecutor
+    def _hybrid_tuner(self):
+        """The scheduler's tuner; `.g` is the group size it has set."""
+        return self._hybrid().tuner
 
-        return {"buffered": [], "pool": [], "pending": [],
-                "executor": ThreadPoolExecutor(max_workers=1)}
+    def _hybrid_flush(self, flow, final: bool) -> None:
+        """One group of a full-native flow (`DeviceChunks.flush`). It is
+        a method of the pipeline so that a caller can time those groups
+        apart from `_map_pairs_hybrid`, inside which the records flows'
+        groups run."""
+        self._hybrid().flush(flow, final)
 
-    def _hybrid_step(self, engine, hyb, b1, o1, b2, o2, n1: int,
-                     base_read_id: int, threshold: int, account) -> None:
-        import ctypes as _ct
-
+    def _seeds_on_device(self, paired: bool) -> bool:
+        """Whether a flow's chunks go through the device-chunk scheduler.
+        Single-end runs with --split-alignment or --chr-order stay on the
+        host: the reference's single-end rerank call site is a no-op
+        (chromap.h:418-419), so the host gathers the reordered reference
+        at index-space rids, which the index-space seeder would not."""
         cfg = self.cfg
-        P = self._hybrid_tuner().g
-        cid = tracing.chunk_ids(1)
+        return cfg.use_device and (paired or not (
+            cfg.split_alignment or cfg.custom_rid_order_file_path))
 
-        # copy the reader's (reused) buffers into a pooled slot
-        offs1 = np.ctypeslib.as_array(
-            _ct.cast(o1.value if hasattr(o1, "value") else o1,
-                     _ct.POINTER(_ct.c_int64)), shape=(n1 + 1,))
-        offs2 = np.ctypeslib.as_array(
-            _ct.cast(o2.value if hasattr(o2, "value") else o2,
-                     _ct.POINTER(_ct.c_int64)), shape=(n1 + 1,))
-        raw1 = np.ctypeslib.as_array(
-            _ct.cast(b1, _ct.POINTER(_ct.c_uint8)), shape=(int(offs1[n1]),))
-        raw2 = np.ctypeslib.as_array(
-            _ct.cast(b2, _ct.POINTER(_ct.c_uint8)), shape=(int(offs2[n1]),))
-        slot = hyb["pool"].pop() if hyb["pool"] else \
-            [np.empty(0, np.uint8), np.empty(0, np.int64),
-             np.empty(0, np.uint8), np.empty(0, np.int64)]
-        with tracing.span("hybrid.copy", cid):
-            for i, src in enumerate((raw1, offs1, raw2, offs2)):
-                if slot[i].size < src.size:
-                    slot[i] = np.empty(src.size, src.dtype)
-                np.copyto(slot[i][:src.size], src)
-        hyb["buffered"].append((slot, n1, base_read_id, threshold, cid))
-        if len(hyb["buffered"]) >= P:
-            self._hybrid_flush(engine, hyb, account, final=False)
-
-    @tracing.traced("hybrid.flush")
-    def _hybrid_flush(self, engine, hyb, account, final: bool) -> None:
-        """Map the buffered group: submit every chunk but the first to
-        the device (they pipeline back-to-back on the chip and their
-        transfers overlap the next group's host work), process the
-        PREVIOUS group's pending list in chunk order (device finishes
-        interleaved with any chunks that fell back to the CPU), then
-        fuse-map this group's first chunk on the CPU. Selection order --
-        and the single mt19937 stream -- is chunk order throughout:
-        group k's non-first chunks all select at flush k+1, before
-        group k+1's own first chunk."""
-        import ctypes as _ct
-
-        chunks = hyb["buffered"]
-        hyb["buffered"] = []
-        tuner = self._hybrid_tuner()
-        tracing.count("hybrid.flushes")
-        tracing.count("hybrid.group_sum", tuner.g)
-        t_flush0 = time.time()
-        pend = []
-        if len(chunks) >= 2:
-            for entry in chunks[1:]:
-                p = self._hybrid_submit_device(engine, hyb, *entry)
-                pend.append(("dev", p) if p is not None
-                            else ("cpu", entry))
-            chunks = chunks[:1]
-
-        def _cpu_map(entry):
-            slot, n1, base, thr, cid = entry
-            r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
-            r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
-            o1p = slot[1].ctypes.data_as(_ct.c_void_p)
-            o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-            with tracing.span("native.cpu_map", cid):
-                account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
-                                             thr))
-            _count_cpu_chunk(n1)
-            hyb["pool"].append(slot)
-
-        for kind, item in hyb["pending"]:
-            if kind == "dev":
-                self._hybrid_finish_dev(engine, hyb, item, account)
-            else:
-                _cpu_map(item)
-        hyb["pending"] = []
-        for entry in chunks:
-            _cpu_map(entry)
-        if final:
-            for kind, item in pend:
-                if kind == "dev":
-                    self._hybrid_finish_dev(engine, hyb, item, account)
-                else:
-                    _cpu_map(item)
-            pend = []
-        hyb["pending"] = pend
-        tuner.flush_done(time.time() - t_flush0)
-
-    def _hybrid_submit_device(self, engine, hyb, slot, n1: int,
-                              base_read_id: int, threshold: int, cid: int):
-        """Pack + dispatch one buffered chunk to the device; the resolve
-        (transfer wait + unpack) runs on the worker thread. Returns None
-        when the chunk is ineligible (the CPU maps it instead)."""
-        import ctypes as _ct
-
-        cfg = self.cfg
-        offs1 = slot[1]
-        L = int(offs1[1] - offs1[0]) if n1 else 0
-        # (trimmed pairs are demoted per-pair inside the native finish;
-        # custom rid order reranks candidates post-seeding there too --
-        # the seeder gathers in index space, see _get_seeder)
-        if n1 == 0 or not (30 <= L <= 230):
-            return None
-
-        if self._get_seeder() is None:
-            return None
-
-        # pack straight from the buffered raw bytes in C++ into a reusable
-        # upload buffer (fresh numpy temporaries page-fault at ~200 s/GB
-        # on the target VM); -1 = non-uniform lengths. Tail chunks pad to
-        # the fixed chunk size with all-N rows (zero minimizers) so every
-        # dispatch reuses one compiled program shape.
-        chunk = max(n1, min(cfg.device_batch_size, cfg.read_batch_size))
-        W = (L + 15) // 16 + (L + 31) // 32
-        need = 2 * chunk * W
-        with tracing.span("seeder.pack", cid):
-            buf = self._next_pack_buf(need)
-            r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
-            r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
-            o1p = slot[1].ctypes.data_as(_ct.c_void_p)
-            o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-            rc = engine.lib.cn_pack_reads(r1p, o1p, r2p, o2p, n1, L,
-                                          buf.ctypes.data_as(_ct.c_void_p))
-            if rc != 0:
-                return None
-            buf2d = buf[:need].reshape(2 * chunk, W)
-            if n1 < chunk:
-                buf2d[2 * n1:] = 0xFFFFFFFF
-        fut = self._submit_and_resolve(hyb["executor"], buf2d, 2 * chunk, L,
-                                       cid)
-        return (fut, slot, n1, base_read_id, threshold, cid)
-
-    def _submit_and_resolve(self, executor, buf2d, B: int, L: int, cid):
-        """Dispatch packed rows to the device seeder and resolve them on
-        `executor`'s thread; returns the future of the resolve."""
-        seeder = self._device_seeder
-        with tracing.span("seeder.submit", cid):
-            handle = seeder.submit_packed(buf2d, B, L)
-        return executor.submit(seeder.resolve, handle)
-
-    class _HybridTuner:
-        """Adapts the hybrid group size G: each group maps its FIRST
-        chunk on the CPU and sends the other G-1 to the device, so the
-        device:CPU chunk ratio is (G-1):1. Control is AIMD on the
-        fraction of each flush spent blocked waiting for device results:
-        near-zero blocking means the chip (and its transfers) kept up --
-        grow G to shift more chunks onto it; heavy blocking means the
-        device pipeline is saturated -- shrink G so the CPU absorbs
-        more. Mapping output is invariant to which chunks the device
-        maps (device chunks are byte-identical to CPU chunks), so G may
-        change freely between groups; only the summary CSV's
-        cachehit/fric columns can shift (device chunks skip the host
-        candidate cache, see ARCHITECTURE.md)."""
-
-        def __init__(self, g0: int):
-            self.g = max(2, g0)
-            self._blocked = 0.0
-            self._flushes = 0
-
-        def dev_wait(self, dt: float) -> None:
-            self._blocked += dt
-
-        def flush_done(self, wall: float) -> None:
-            blocked, self._blocked = self._blocked, 0.0
-            self._flushes += 1
-            # the first flush pays trace/compile/warmup on its waits
-            if self._flushes <= 1 or wall <= 0:
-                return
-            frac = blocked / wall
-            if frac > 0.15:
-                self.g = max(2, self.g - 1)
-            elif frac < 0.03:
-                self.g = min(12, self.g + 1)
-
-    def _hybrid_tuner(self) -> "_HybridTuner":
-        t = getattr(self, "_hybrid_tuner_obj", None)
-        if t is None:
-            t = self._HybridTuner(
-                max(2, getattr(self.cfg, "device_hybrid_period", 3)))
-            self._hybrid_tuner_obj = t
-        return t
-
-    def _wait_device(self, fut, cid):
-        """The main thread's wait for a device chunk's resolve; the wait
-        feeds the tuner's control of G."""
-        t_wait0 = time.time()
-        with tracing.span("hybrid.wait", cid):
-            result = fut.result()
-        self._hybrid_tuner().dev_wait(time.time() - t_wait0)
-        return result
-
-    def _hybrid_finish_dev(self, engine, hyb, pend, account) -> None:
-        """Finish one in-flight device chunk (pending-list entry)."""
-        import ctypes as _ct
-
-        fut, slot, n1, base, threshold, cid = pend
-        meta, cand_pos, cand_meta, overflow = self._wait_device(fut, cid)
-        r1p = _ct.cast(slot[0].ctypes.data, _ct.c_char_p)
-        r2p = _ct.cast(slot[2].ctypes.data, _ct.c_char_p)
-        o1p = slot[1].ctypes.data_as(_ct.c_void_p)
-        o2p = slot[3].ctypes.data_as(_ct.c_void_p)
-        with tracing.span("native.finish", cid):
-            if overflow:
-                account(engine.map_pairs_raw(r1p, o1p, r2p, o2p, n1, base,
-                                             threshold))
-            else:
-                account(engine.map_pairs_dev_seeded(r1p, o1p, r2p, o2p, n1,
-                                                    base, meta, cand_pos,
-                                                    cand_meta))
-        tracing.count("chunks.dev")
-        hyb["pool"].append(slot)
+    def _map_batch_chunks(self, ends, base_read_id: int, threshold: int,
+                          flow) -> None:
+        """Map a records batch (`ends` as in hybrid.Chunk): on the host
+        in one call, or, under --device and with more reads than one
+        chunk holds, chunk by chunk through the device-chunk scheduler,
+        each chunk taking the cache-update threshold's share that falls
+        in it."""
+        hyb = self._hybrid()
+        n = len(ends[0][1]) - 1
+        C = hyb.size(len(ends))
+        if not (self._seeds_on_device(paired=len(ends) == 2) and n > C):
+            hyb.map_host(flow, Chunk(ends, base_read_id, threshold,
+                                     tracing.chunk_ids(1)))
+            return
+        c0 = tracing.chunk_ids(-(-n // C))
+        hyb.run((Chunk(tuple((b, o[s:min(s + C, n) + 1]) for b, o in ends),
+                       base_read_id + s,
+                       max(0, min(threshold - s, C, n - s)),
+                       c0 + s // C)
+                 for s in range(0, n, C)), flow)
 
     class _HybridInfo:
         """Per-batch side channels stitched across hybrid chunks (the
@@ -1404,330 +1241,98 @@ class MappingPipeline:
     def _map_pairs_hybrid(self, engine, reads1, reads2, base_read_id: int,
                           threshold: int, full: bool = False,
                           sam: bool = False, want_info: bool = False):
-        """map_pairs_raw / map_pairs_full_raw with device-eligible chunks
-        routed through the device seeder (records flows: barcoded,
-        low-mem, summary, PAF/SAM/pairs). reads1 and reads2 are each a
-        blob of bases (bytes, or a pointer into a native reader's buffers)
-        and its n+1 int64 offsets (_blob). The group scheduler keeps
-        selections in batch order, so the mapping records equal the
-        host-only call's
-        (device chunks skip the host candidate cache, so only cache-hit
-        counters can differ on cache-active data; see ARCHITECTURE.md).
+        """map_pairs_raw / map_pairs_full_raw over a records batch
+        (barcoded, low-mem, summary, PAF/SAM/pairs), its device-eligible
+        chunks seeded on the card (`_map_batch_chunks`). reads1 and
+        reads2 are each a blob of bases (bytes, or a pointer into a
+        native reader's buffers) and its n+1 int64 offsets (_blob). The
+        scheduler selects in chunk order, so the mapping records equal
+        the host-only call's.
 
         Returns (out, stats) -- plus a _HybridInfo when want_info (per-
         pair cache-hit flags, trimmed lengths, merged SAM aux)."""
-        import ctypes as _ct
+        n = len(reads1[1]) - 1
+        outs, auxes = [], []
+        stats = np.zeros(5, dtype=np.int64)
+        info = self._HybridInfo() if want_info else None
+        if info is not None:
+            info.flags = np.zeros(n, dtype=np.uint8)
+            if self.cfg.trim_adapters:
+                info.tl1 = np.zeros(n, dtype=np.uint16)
+                info.tl2 = np.zeros(n, dtype=np.uint16)
 
-        cfg = self.cfg
-        r1_bytes, o1 = reads1
-        r2_bytes, o2 = reads2
-        n = len(o1) - 1
-        C = min(cfg.device_batch_size, cfg.read_batch_size)
-        use_dev = (cfg.use_device and n > C
-                   and self._get_seeder() is not None)
-
-        def off_ptr(o, s):
-            return _ct.c_void_p(o.ctypes.data + 8 * s)
-
-        if not use_dev:
-            with tracing.span("native.cpu_map", tracing.chunk_ids(1)):
-                if full:
-                    out, stats, aux = engine.map_pairs_full_raw(
-                        r1_bytes, off_ptr(o1, 0), r2_bytes, off_ptr(o2, 0),
-                        n, base_read_id, threshold, sam_aux=sam)
-                else:
-                    out, stats = engine.map_pairs_raw(
-                        r1_bytes, off_ptr(o1, 0), r2_bytes, off_ptr(o2, 0),
-                        n, base_read_id, threshold)
-                    aux = None
-            _count_cpu_chunk(n)
-            if not want_info:
-                return out, stats
-            info = self._HybridInfo()
-            info.aux = aux
-            info.flags = engine.get_pair_flags()
-            if cfg.trim_adapters:
-                info.tl1, info.tl2 = engine.get_pair_trimmed_lengths()
-            return out, stats, info
-
-        bounds = [(s, min(s + C, n)) for s in range(0, n, C)]
-        nb = len(bounds)
-        c0 = tracing.chunk_ids(nb)
-        outs = [None] * nb
-        auxes = [None] * nb if (full and sam) else None
-        flags = np.zeros(n, dtype=np.uint8) if want_info else None
-        tl1 = (np.zeros(n, dtype=np.uint16)
-               if want_info and cfg.trim_adapters else None)
-        tl2 = (np.zeros(n, dtype=np.uint16)
-               if want_info and cfg.trim_adapters else None)
-        stats_sum = np.zeros(5, dtype=np.int64)
-
-        def side_channels(ci):
-            s, e = bounds[ci]
-            if flags is not None:
-                f = engine.get_pair_flags()
-                flags[s:e] = f[:e - s]
-            if tl1 is not None:
+        def keep(chunk, out, st, aux=None):
+            outs.append(out)
+            stats[:] += st
+            if sam:
+                auxes.append(aux if aux is not None else engine.get_sam_aux())
+            if info is None:
+                return
+            s = chunk.base_read_id - base_read_id
+            info.flags[s:s + chunk.n] = engine.get_pair_flags()[:chunk.n]
+            if info.tl1 is not None:
                 t1, t2 = engine.get_pair_trimmed_lengths()
-                tl1[s:e] = t1[:e - s]
-                tl2[s:e] = t2[:e - s]
+                info.tl1[s:s + chunk.n] = t1[:chunk.n]
+                info.tl2[s:s + chunk.n] = t2[:chunk.n]
 
-        def map_host(ci):
-            s, e = bounds[ci]
-            thr = max(0, min(threshold - s, e - s))
+        def map_host(chunk):
+            args = (*chunk.args(), chunk.n, chunk.base_read_id,
+                    chunk.threshold)
             if full:
-                out, st, aux = engine.map_pairs_full_raw(
-                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
-                    e - s, base_read_id + s, thr, sam_aux=sam)
-                if auxes is not None:
-                    auxes[ci] = aux
+                keep(chunk, *engine.map_pairs_full_raw(*args, sam_aux=sam))
             else:
-                out, st = engine.map_pairs_raw(
-                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s),
-                    e - s, base_read_id + s, thr)
-            outs[ci] = out
-            stats_sum[:] += st
-            side_channels(ci)
+                keep(chunk, *engine.map_pairs_raw(*args))
 
-        def run_cpu(ci):
-            with tracing.span("native.cpu_map", c0 + ci):
-                map_host(ci)
-            _count_cpu_chunk(bounds[ci][1] - bounds[ci][0])
+        def finish(chunk, meta, cand_pos, cand_meta):
+            seeded = (engine.map_pairs_dev_seeded_full if full
+                      else engine.map_pairs_dev_seeded)
+            keep(chunk, *seeded(*chunk.args(), chunk.n, chunk.base_read_id,
+                                meta, cand_pos, cand_meta))
 
-        def submit_dev(ci):
-            s, e = bounds[ci]
-            nn = e - s
-            L = int(o1[s + 1] - o1[s])
-            if not (30 <= L <= 230):
-                return None
-            W = (L + 15) // 16 + (L + 31) // 32
-            need = 2 * C * W
-            with tracing.span("seeder.pack", c0 + ci):
-                buf = self._next_pack_buf(need)
-                rc = engine.lib.cn_pack_reads(
-                    r1_bytes, off_ptr(o1, s), r2_bytes, off_ptr(o2, s), nn,
-                    L, buf.ctypes.data_as(_ct.c_void_p))
-                if rc != 0:
-                    return None
-                buf2d = buf[:need].reshape(2 * C, W)
-                if nn < C:
-                    buf2d[2 * nn:] = 0xFFFFFFFF
-            return (self._submit_and_resolve(self._dev_executor(), buf2d,
-                                             2 * C, L, c0 + ci), ci)
-
-        def finish_dev(pend):
-            fut, ci = pend
-            meta, cp, cm, overflow = self._wait_device(fut, c0 + ci)
-            s, e = bounds[ci]
-            nn = e - s
-            with tracing.span("native.finish", c0 + ci):
-                if overflow:
-                    map_host(ci)
-                else:
-                    if full:
-                        out, st = engine.map_pairs_dev_seeded_full(
-                            r1_bytes, off_ptr(o1, s), r2_bytes,
-                            off_ptr(o2, s), nn, base_read_id + s, meta, cp,
-                            cm)
-                        if auxes is not None:
-                            auxes[ci] = engine.get_sam_aux()
-                    else:
-                        out, st = engine.map_pairs_dev_seeded(
-                            r1_bytes, off_ptr(o1, s), r2_bytes,
-                            off_ptr(o2, s), nn, base_read_id + s, meta, cp,
-                            cm)
-                    outs[ci] = out
-                    stats_sum[:] += st
-                    side_channels(ci)
-            tracing.count("chunks.dev")
-
-        self._run_hybrid_groups(nb, run_cpu, submit_dev, finish_dev)
-
+        self._map_batch_chunks(
+            (reads1, reads2), base_read_id, threshold,
+            Flow(engine.lib.cn_pack_reads, map_host, finish))
         out = {key: np.concatenate([o[key] for o in outs])
                for key in outs[0]}
-        if not want_info:
-            return out, stats_sum
-        info = self._HybridInfo()
-        info.flags = flags
-        info.tl1 = tl1
-        info.tl2 = tl2
-        if auxes is not None:
+        if info is None:
+            return out, stats
+        if full and sam:
             info.aux = self._merge_sam_aux(auxes)
-        return out, stats_sum, info
-
-    def _run_hybrid_groups(self, nb: int, run_cpu, submit_dev,
-                           finish_dev) -> None:
-        """The records flows' multi-chunk pipelining over chunks 0..nb-1
-        (the scheme of _hybrid_flush): each group's FIRST chunk maps on
-        the CPU, the rest submit to the device (submit_dev returns None
-        for a chunk the CPU must map) and finish -- in chunk order -- at
-        the next group."""
-        tuner = self._hybrid_tuner()
-        pend = []
-        gi = 0
-        while gi < nb:
-            group = list(range(gi, min(gi + tuner.g, nb)))
-            with tracing.span("hybrid.flush"):
-                tracing.count("hybrid.flushes")
-                tracing.count("hybrid.group_sum", tuner.g)
-                t_flush0 = time.time()
-                newpend = []
-                cpu_list = group
-                if len(group) >= 2:
-                    for ci in group[1:]:
-                        pdc = submit_dev(ci)
-                        newpend.append(("dev", pdc) if pdc is not None
-                                       else ("cpu", ci))
-                    cpu_list = group[:1]
-                for kind, item in pend:
-                    if kind == "dev":
-                        finish_dev(item)
-                    else:
-                        run_cpu(item)
-                for ci in cpu_list:
-                    run_cpu(ci)
-                pend = newpend
-                gi += len(group)
-                tuner.flush_done(time.time() - t_flush0)
-        if pend:
-            with tracing.span("hybrid.flush"):
-                for kind, item in pend:
-                    if kind == "dev":
-                        finish_dev(item)
-                    else:
-                        run_cpu(item)
+        return out, stats, info
 
     @tracing.traced("hybrid")
-    def _map_single_hybrid(self, engine, r_bytes, r_off: np.ndarray,
-                           n: int, base_read_id: int, threshold: int,
-                           sam: bool = False):
-        """map_single_raw with the last chunk of every group device-seeded
-        (same scheduler as _map_pairs_hybrid; single-end selection uses a
-        fresh per-read RNG, so chunk order only matters for output
-        assembly). Returns (out, stats[, aux])."""
-        import ctypes as _ct
+    def _map_single_hybrid(self, engine, reads, base_read_id: int,
+                           threshold: int, sam: bool = False):
+        """map_single_raw over a records batch, `reads` a blob of bases
+        and its offsets (_blob), its device-eligible chunks seeded on the
+        card (`_map_batch_chunks`). Returns (out, stats[, aux])."""
+        outs, auxes = [], []
+        stats = np.zeros(5, dtype=np.int64)
 
-        cfg = self.cfg
-        C = min(2 * cfg.device_batch_size, cfg.read_batch_size)
-        # single-end + --chr-order stays on the host: the reference's SE
-        # rerank call site is a no-op (chromap.h:418-419), so the host
-        # gathers the REORDERED reference at index-space rids -- the
-        # index-space seeder would diverge from that (bug-compatible)
-        # behavior
-        use_dev = (cfg.use_device and n > C and not cfg.split_alignment
-                   and not cfg.custom_rid_order_file_path
-                   and self._get_seeder() is not None)
-        off_base = _ct.c_void_p(r_off.ctypes.data)
-        if not use_dev:
-            with tracing.span("native.cpu_map", tracing.chunk_ids(1)):
-                out, stats = engine.map_single_raw(r_bytes, off_base, n,
-                                                   base_read_id, threshold)
-            _count_cpu_chunk(n)
-            if not sam:
-                return out, stats
-            return out, stats, engine.get_sam_aux()
+        def keep(out_stats):
+            out, st = out_stats
+            outs.append(out)
+            stats[:] += st
+            if sam:
+                auxes.append(engine.get_sam_aux())
 
-        bounds = [(s, min(s + C, n)) for s in range(0, n, C)]
-        nb = len(bounds)
-        c0 = tracing.chunk_ids(nb)
-        outs = [None] * nb
-        auxes = [None] * nb if sam else None
-        stats_sum = np.zeros(5, dtype=np.int64)
+        def map_host(chunk):
+            keep(engine.map_single_raw(*chunk.args(), chunk.n,
+                                       chunk.base_read_id, chunk.threshold))
 
-        def off_ptr(s):
-            return _ct.c_void_p(r_off.ctypes.data + 8 * s)
+        def finish(chunk, meta, cand_pos, cand_meta):
+            keep(engine.map_single_dev_seeded(*chunk.args(), chunk.n,
+                                              chunk.base_read_id, meta,
+                                              cand_pos, cand_meta))
 
-        def map_host(ci):
-            s, e = bounds[ci]
-            thr = max(0, min(threshold - s, e - s))
-            out, st = engine.map_single_raw(r_bytes, off_ptr(s), e - s,
-                                            base_read_id + s, thr)
-            outs[ci] = out
-            stats_sum[:] += st
-            if auxes is not None:
-                auxes[ci] = engine.get_sam_aux()
-
-        def run_cpu(ci):
-            with tracing.span("native.cpu_map", c0 + ci):
-                map_host(ci)
-            _count_cpu_chunk(bounds[ci][1] - bounds[ci][0])
-
-        def submit_dev(ci):
-            s, e = bounds[ci]
-            nn = e - s
-            L = int(r_off[s + 1] - r_off[s])
-            if not (30 <= L <= 230):
-                return None
-            W = (L + 15) // 16 + (L + 31) // 32
-            need = C * W
-            with tracing.span("seeder.pack", c0 + ci):
-                buf = self._next_pack_buf(need)
-                rc = engine.lib.cn_pack_reads_se(
-                    r_bytes, off_ptr(s), nn, L,
-                    buf.ctypes.data_as(_ct.c_void_p))
-                if rc != 0:
-                    return None
-                buf2d = buf[:need].reshape(C, W)
-                if nn < C:
-                    buf2d[nn:] = 0xFFFFFFFF
-            return (self._submit_and_resolve(self._dev_executor(), buf2d,
-                                             C, L, c0 + ci), ci)
-
-        def finish_dev(pend):
-            fut, ci = pend
-            meta, cp, cm, overflow = self._wait_device(fut, c0 + ci)
-            s, e = bounds[ci]
-            with tracing.span("native.finish", c0 + ci):
-                if overflow:
-                    map_host(ci)
-                else:
-                    out, st = engine.map_single_dev_seeded(
-                        r_bytes, off_ptr(s), e - s, base_read_id + s, meta,
-                        cp, cm)
-                    outs[ci] = out
-                    stats_sum[:] += st
-                    if auxes is not None:
-                        auxes[ci] = engine.get_sam_aux()
-            tracing.count("chunks.dev")
-
-        self._run_hybrid_groups(nb, run_cpu, submit_dev, finish_dev)
-
+        self._map_batch_chunks(
+            (reads,), base_read_id, threshold,
+            Flow(engine.lib.cn_pack_reads_se, map_host, finish))
         out = {key: np.concatenate([o[key] for o in outs])
                for key in outs[0]}
         if not sam:
-            return out, stats_sum
-        return out, stats_sum, self._merge_sam_aux(auxes)
-
-    def _dev_executor(self):
-        ex = getattr(self, "_dev_executor_obj", None)
-        if ex is None:
-            from concurrent.futures import ThreadPoolExecutor
-            ex = ThreadPoolExecutor(max_workers=1)
-            self._dev_executor_obj = ex
-        return ex
-
-    # pack-buffer ring depth: must exceed the maximum number of device
-    # chunks in flight (the tuner caps G at 12, so up to 11 submissions
-    # wait for their group-later resolve) plus the one being packed --
-    # a buffer handed to jnp.asarray may still be mid-h2d (or zero-copy
-    # aliased on the CPU backend) until its chunk resolves, and reusing
-    # it early corrupts the in-flight upload (seen as rare wrong-mapping
-    # flakes in test_device_parity_cache_active, 2026-08-19)
-    _PACK_RING = 16
-
-    def _next_pack_buf(self, need: int) -> np.ndarray:
-        """Rotating pack buffers (see _PACK_RING)."""
-        bufs = getattr(self, "_dev_pack_bufs", None)
-        if bufs is None:
-            bufs = [None] * self._PACK_RING
-            self._dev_pack_bufs = bufs
-            self._dev_pack_idx = 0
-        self._dev_pack_idx = (self._dev_pack_idx + 1) % self._PACK_RING
-        buf = bufs[self._dev_pack_idx]
-        if buf is None or buf.size < need:
-            buf = np.zeros(need, dtype=np.uint32)
-            bufs[self._dev_pack_idx] = buf
-        return buf
+            return out, stats
+        return out, stats, self._merge_sam_aux(auxes)
 
     def _map_batch_native(self, engine, batch1, batch2, threshold,
                           emit) -> None:
@@ -2178,169 +1783,16 @@ class MappingPipeline:
         self.num_uniquely_mapped_reads += int(stats[3])
         self.cache_hits += int(stats[4])
 
-    def _map_single_end_full_native(self, engine) -> None:
-        """SE native IO + mapping + postprocess + write (cn_map_single)."""
-        import time as _time
-
-        from .native import NativeFastxReader, native_postprocess_write
-
-        cfg = self.cfg
-        t_map = _time.time()
-        chunks: List[dict] = []
-        base_read_id = 0
-
-        def account(out_stats):
-            out, stats = out_stats
-            chunks.append(out)
-            self.num_candidates += int(stats[0])
-            self.num_mappings += int(stats[1])
-            self.num_mapped_reads += int(stats[2])
-            self.num_uniquely_mapped_reads += int(stats[3])
-            self.cache_hits += int(stats[4])
-
-        # single-end selection draws a fresh per-read RNG, so device and
-        # host chunks need no ordering: every P-th chunk seeds on the chip
-        # (same program shape as the paired hybrid) while the CPU maps the
-        # rest; one device chunk stays in flight
-        batch_n = (min(cfg.read_batch_size, 2 * cfg.device_batch_size)
-                   if cfg.use_device else cfg.read_batch_size)
-        P = max(1, cfg.device_hybrid_period)
-        ci = 0
-        pending = None
-        for file_index in range(len(cfg.read_file1_paths)):
-            stream = self._PrefetchStream(
-                [NativeFastxReader(cfg.read_file1_paths[file_index])],
-                batch_n)
-            while True:
-                ((n1, b1, o1),) = stream.next()
-                if n1 == 0:
-                    break
-                self.num_reads += n1
-                threshold = self.cache_single.get_update_threshold(
-                    n1, self.num_reads, False, 0.01)
-                self._debug_threshold(threshold)
-                newp = None
-                cid = tracing.chunk_ids(1)
-                if cfg.use_device and ci % P == 0:
-                    newp = self._se_device_submit(engine, b1, o1, n1,
-                                                  base_read_id, cid)
-                if newp is None:
-                    with tracing.span("native.cpu_map", cid):
-                        account(engine.map_single_raw(b1, o1, n1,
-                                                      base_read_id,
-                                                      threshold))
-                    _count_cpu_chunk(n1)
-                else:
-                    if pending is not None:
-                        account(self._se_device_resolve(engine, pending))
-                    pending = newp
-                base_read_id += n1
-                ci += 1
-                log(f"Mapped {n1} reads.")
-            stream.close()
-        if pending is not None:
-            account(self._se_device_resolve(engine, pending))
-        log(f"Mapped all reads in {_time.time() - t_map:.2f}s.")
-        self._output_stats()
-
-        keys = ("rid", "read_id", "start", "flen", "mapq", "dir", "uniq",
-                "posalen", "negalen")
-        with tracing.span("output.concat"):
-            arrays = {key: (np.concatenate([c[key] for c in chunks])
-                            if chunks else np.empty(0))
-                      for key in keys}
-        with tracing.span("output.native"):
-            written, uni, multi = native_postprocess_write(
-                cfg, self.ref_names, arrays, tn5=cfg.tn5_shift,
-                dedup=cfg.remove_pcr_duplicates, se_mode=True)
-        if cfg.remove_pcr_duplicates:
-            log(f"{uni + multi} mappings left after deduplication.")
-        log(f"# uni-mappings: {uni}, # multi-mappings: {multi}, "
-            f"total: {uni + multi}.")
-        log(f"Number of output mappings (passed filters): {written}")
-        self._debug_cache_stats(engine, paired=False)
-
-    def _se_device_submit(self, engine, b1, o1, n1: int,
-                          base_read_id: int, cid: int):
-        """Dispatch one single-end chunk to the device seeder (same packed
-        program as the paired hybrid); returns None when the chunk is
-        ineligible (CPU maps it instead)."""
-        import ctypes as _ct
-
-        cfg = self.cfg
-
-        offs1 = np.ctypeslib.as_array(
-            _ct.cast(o1.value if hasattr(o1, "value") else o1,
-                     _ct.POINTER(_ct.c_int64)), shape=(n1 + 1,))
-        L = int(offs1[1] - offs1[0]) if n1 else 0
-        # chr-order gate: see _map_single_hybrid (SE candidates never
-        # rerank, reference-faithfully, so the host gathers the reordered
-        # reference at index rids; the index-space seeder would diverge)
-        if (n1 == 0 or not (30 <= L <= 230)
-                or cfg.custom_rid_order_file_path):
-            return None
-        if self._get_seeder() is None:
-            return None
-
-        chunk = max(n1, min(2 * cfg.device_batch_size, cfg.read_batch_size))
-        W = (L + 15) // 16 + (L + 31) // 32
-        need = chunk * W
-        with tracing.span("seeder.pack", cid):
-            buf = self._next_pack_buf(need)
-            rc = engine.lib.cn_pack_reads_se(
-                b1, o1, n1, L, buf.ctypes.data_as(_ct.c_void_p))
-            if rc != 0:
-                return None
-            buf2d = buf[:need].reshape(chunk, W)
-            if n1 < chunk:
-                buf2d[n1:] = 0xFFFFFFFF
-        with tracing.span("seeder.submit", cid):
-            handle = self._device_seeder.submit_packed(buf2d, chunk, L)
-        with tracing.span("hybrid.copy", cid):
-            raw1 = np.ctypeslib.as_array(
-                _ct.cast(b1, _ct.POINTER(_ct.c_uint8)),
-                shape=(int(offs1[n1]),))
-            saved = (raw1.copy(), offs1.copy())
-        return (handle, saved, n1, base_read_id, cid)
-
-    def _se_device_resolve(self, engine, pending):
-        """Blocks on a single-end device chunk and runs the native
-        finish (fallback-flagged reads re-run the exact path inside)."""
-        import ctypes as _ct
-
-        handle, saved, n1, base, cid = pending
-        raw1, offs1 = saved
-        # this flow resolves on the main thread: hybrid.wait holds the
-        # unpack of the download as well as the wait
-        with tracing.span("hybrid.wait", cid):
-            meta, cand_pos, cand_meta, overflow = \
-                self._device_seeder.resolve(handle)
-        rp = _ct.cast(raw1.ctypes.data, _ct.c_char_p)
-        op = offs1.ctypes.data_as(_ct.c_void_p)
-        with tracing.span("native.finish", cid):
-            if overflow:
-                out_stats = engine.map_single_raw(rp, op, n1, base, 0)
-            else:
-                out_stats = engine.map_single_dev_seeded(
-                    rp, op, n1, base, meta, cand_pos, cand_meta)
-        tracing.count("chunks.dev")
-        return out_stats
-
     def _map_batch_native_se(self, engine, batch, threshold, emit) -> None:
         """Map one single-end batch through the C++ host engine."""
         from .mapping.records import SEBedRecord
         from .summary import CACHEHIT, TOTAL
 
         with tracing.span("records.pack"):
-            reads = [bytes(r.seq) for r in batch]
+            reads = _blob([bytes(r.seq) for r in batch])
             orig_ids = np.asarray([r.read_id for r in batch],
                                   dtype=np.uint32)
-            n = len(reads)
-            r_bytes = b"".join(reads)
-            r_off = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum([len(r) for r in reads], out=r_off[1:])
-        out, stats = self._map_single_hybrid(engine, r_bytes, r_off, n, 0,
-                                             threshold)
+        out, stats = self._map_single_hybrid(engine, reads, 0, threshold)
         with tracing.span("records.emit"):
             rid_a = out["rid"]
             if self._array_spill_ok():
@@ -2362,7 +1814,7 @@ class MappingPipeline:
         self.num_uniquely_mapped_reads += int(stats[3])
         self.cache_hits += int(stats[4])
         if self.summary is not None:
-            self.summary.update_count(0, TOTAL, n)
+            self.summary.update_count(0, TOTAL, len(batch))
             self.summary.update_count(0, CACHEHIT, int(stats[4]))
 
     def _map_batch_native_se_barcoded(self, engine, batch, batch_bc,
@@ -2394,11 +1846,7 @@ class MappingPipeline:
                 self.summary.update_nonwhitelist(TOTAL, nonwhitelist_count)
             if not reads:
                 return
-            n = len(reads)
-            r_bytes = b"".join(reads)
-            r_off = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum([len(r) for r in reads], out=r_off[1:])
-        out, stats = self._map_single_hybrid(engine, r_bytes, r_off, n, 0,
+        out, stats = self._map_single_hybrid(engine, _blob(reads), 0,
                                              threshold)
         with tracing.span("records.emit"):
             rid_a = out["rid"]
@@ -2468,16 +1916,13 @@ class MappingPipeline:
         with tracing.span("records.pack"):
             reads = [bytes(r.seq) for r in batch]
             n = len(reads)
-            r_bytes = b"".join(reads)
-            r_off = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum([len(r) for r in reads], out=r_off[1:])
+            blob = _blob(reads)
         if sam:
             out, stats, aux = self._map_single_hybrid(
-                engine, r_bytes, r_off, n, base_read_id, threshold,
-                sam=True)
+                engine, blob, base_read_id, threshold, sam=True)
         else:
             out, stats = self._map_single_hybrid(
-                engine, r_bytes, r_off, n, base_read_id, threshold)
+                engine, blob, base_read_id, threshold)
             aux = None
         with tracing.span("records.emit"):
             if self.summary is not None and batch_bc is None \

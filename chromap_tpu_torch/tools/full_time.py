@@ -3,7 +3,7 @@ named: the counterpart of tools/device_full_time.py.
 
     python -m chromap_tpu_torch.tools.full_time [--stops probe,cluster]
         [--cache DIR] [--rows 32768] [--reps 20] [--split]
-        [--probe {default,bucket,sortss}] [--torch-device {cuda,cpu}]
+        [--torch-device {cuda,cpu}]
 
 Same data, columns and method as tools/stage_profile.py (one JSON line
 per stop, the full step last as "FULL"), for the named stops alone: a

@@ -2,8 +2,8 @@
 counterpart of tools/device_stage_profile.py.
 
     python -m chromap_tpu_torch.tools.stage_profile [--cache DIR]
-        [--rows 32768] [--reps 20] [--split] [--probe {default,bucket,sortss}]
-        [--reads PREFIX] [--torch-device {cuda,cpu}]
+        [--rows 32768] [--reps 20] [--split] [--reads PREFIX]
+        [--torch-device {cuda,cpu}]
 
 For every stop of `STAGES`, in order, it builds the step truncated there
 (`_build_step(..., stop=s)`, never through `_cached_step`, whose cache
@@ -30,8 +30,6 @@ adds to the step, launch overhead included. On the CPU (`--torch-device
 cpu`) the host clock times the plain versions and no device time is
 measured (kernel_ms null).
 
-`--probe default` is the seeder's default probe (kernel E on CUDA, the
-merged sort on the CPU); `bucket` and `sortss` set CHROMAP_TPU_PROBE.
 `--cache` names a data set made by `python -m chromap_tpu_torch.bench`
 or `chip_smoke.py` (ref.fa, index, <reads>1.fq, <reads>2.fq); by default
 the bench's set, made if absent. `--split` runs the Hi-C step (drop-off
@@ -49,9 +47,6 @@ import time
 
 from ..ops.device_seed import STAGES
 
-PROBES = {"default": None, "bucket": "bucket", "sortss": "sortss"}
-
-
 def add_chunk_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--cache", default="",
                     help="data set directory (default: the bench's set)")
@@ -62,7 +57,6 @@ def add_chunk_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--split", action="store_true",
                     help="the Hi-C step (drop-off verification, e = 4)")
-    ap.add_argument("--probe", choices=sorted(PROBES), default="default")
     ap.add_argument("--torch-device", choices=("cuda", "cpu"),
                     default="cuda")
 
@@ -122,17 +116,8 @@ class Chunk:
         index, refs = load_set(cache)
         self.split = args.split
         self.e = 4 if args.split else 8
-        mode = PROBES[args.probe]
-        old = os.environ.pop("CHROMAP_TPU_PROBE", None)
-        if mode:
-            os.environ["CHROMAP_TPU_PROBE"] = mode
-        try:
-            self.seeder = ds.DeviceSeeder(index, refs, self.e, 2, (500, 1000),
-                                          device=self.dev, split=args.split)
-        finally:
-            os.environ.pop("CHROMAP_TPU_PROBE", None)
-            if old is not None:
-                os.environ["CHROMAP_TPU_PROBE"] = old
+        self.seeder = ds.DeviceSeeder(index, refs, self.e, 2, (500, 1000),
+                                      device=self.dev, split=args.split)
         B, L = codes.shape
         self.B, self.L = B, L
         self.sizes = dict(L=L, B=B, Mtot=ds.MZ_PER_READ * B,
@@ -142,7 +127,7 @@ class Chunk:
         self.lengths = torch.from_numpy(lengths).to(self.dev)
         self.header = dict(
             cache=cache, rows=B, L=L, split=args.split, e=self.e,
-            probe=args.probe, keys=int(self.seeder.hash_keys.numel()),
+            keys=int(self.seeder.hash_keys.numel()),
             occurrences=int(self.seeder.occurrences.numel()), **{
                 k: v for k, v in self.sizes.items() if k not in ("L", "B")},
             device=bench.device_banner(self.dev))
@@ -151,7 +136,7 @@ class Chunk:
         from ..ops import device_seed as ds
         s = self.seeder
         fn = ds._build_step(s.k, s.w, s.e, s.f0, s.f1, s.min_num_seeds,
-                            s.num_refs, s.split, s.probe, stop=stop)
+                            s.num_refs, s.split, stop=stop)
         args = (self.rw, self.lengths) + s._index_operands()
         return lambda: fn(*args, **self.sizes)
 

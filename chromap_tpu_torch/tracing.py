@@ -40,12 +40,10 @@ Spans (per pass, chunk, group or stage, never per read):
                      its read ids
     hybrid           one _map_pairs_hybrid / _map_single_hybrid call
     hybrid.copy      copying a chunk out of the reader's buffers
-    hybrid.flush     one group of the hybrid scheduler
+    hybrid.flush     one group of the device-chunk scheduler (hybrid.py)
     seeder.pack      packing a chunk into upload rows, with its padding
     seeder.submit    enqueueing a chunk's upload, step and download
     hybrid.wait      the main thread blocked on a device chunk's result
-                     (the full-native single-end flow resolves on the
-                     main thread, so there it holds the unpack too)
     native.finish    the native finish of a device-seeded chunk, or the
                      host map of one whose candidates overflowed
     native.cpu_map   the native engine mapping a host chunk

@@ -277,30 +277,6 @@ def test_banded_distance_batch_from_host_rows(card, n):
     assert (got[0] <= e).any() and (got[0] > e).any()
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_bucketed_seeder_card_equals_cpu(card, small_world, monkeypatch,
-                                         split):
-    """CHROMAP_TPU_PROBE=bucket: the bucketed step's CUDA download equals
-    its CPU download and the merge-sort download."""
-    index, ref_codes, ref_seqs = small_world
-    B, L = 4096, 100
-    reads = _reads(ref_codes, np.random.default_rng(31), B, L)
-    rw = ds._pack_reads(reads)
-    outs = []
-    for mode, dev in (("bucket", card), ("bucket", "cpu"), (None, card)):
-        if mode is None:
-            monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
-        else:
-            monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
-        seeder = ds.DeviceSeeder(index, ref_seqs, 4 if split else E,
-                                 MIN_SEEDS, F, device=dev, split=split)
-        assert isinstance(seeder.probe, tuple) == (mode == "bucket")
-        (dl, full, _, _), _, _ = seeder.submit_packed(rw, B, L)
-        outs.append((dl.cpu().numpy().tobytes(),
-                     full.cpu().numpy().tobytes()))
-    assert outs[0] == outs[1] == outs[2]
-
-
 def _probe_world(case, k, wide, M, dev, rng):
     """(keys, offcnt, queries, table) on `dev` for kernel E: sorted
     distinct 2k-bit keys (one, two, a sparse index with a crowded bucket
@@ -377,36 +353,6 @@ def test_index_probe_kernel_at_a_141mb_index(card):
     assert int(got[2].sum()) > M // 2
 
 
-def test_probe_switches_card_equal_the_default_step(card, small_world,
-                                                    monkeypatch):
-    """CHROMAP_TPU_PROBE=bucket and =sortss on the card, and the CPU's
-    plain step: every download equals the card's default step (kernel
-    E), in BED and split mode; only the default launches kernel E."""
-    index, ref_codes, ref_seqs = small_world
-    B, L = 4096, 100
-    rw = ds._pack_reads(_reads(ref_codes, np.random.default_rng(41), B, L))
-    for split in (False, True):
-        outs = {}
-        for mode, dev in ((None, card), ("bucket", card), ("sortss", card),
-                          (None, "cpu")):
-            if mode is None:
-                monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
-            else:
-                monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
-            seeder = ds.DeviceSeeder(index, ref_seqs, 4 if split else E,
-                                     MIN_SEEDS, F, device=dev, split=split)
-            before = ds.index_probe.launches
-            (dl, full, _, _), _, _ = seeder.submit_packed(rw, B, L)
-            outs[mode, str(dev)] = (dl.cpu().numpy().tobytes(),
-                                    full.cpu().numpy().tobytes(),
-                                    ds.index_probe.launches - before)
-        want = outs[None, str(card)]
-        assert want[2] == 1
-        for key, got in outs.items():
-            assert got[:2] == want[:2], key
-            assert got[2] == int(key == (None, str(card))), key
-
-
 def test_wrappers_refuse_bad_operands(card):
     codes = torch.zeros((10, 8), dtype=torch.int64, device=card)
     lengths = torch.full((1, 8), 10, dtype=torch.int32, device=card)
@@ -465,7 +411,6 @@ def test_seeder_card_equals_cpu(card, small_world, monkeypatch, B, L,
         monkeypatch.setattr(ds, "index_tiers", lambda *a: tiers)
     reads = _reads(ref_codes, np.random.default_rng(B), B, L)
     rw = ds._pack_reads(reads)
-    monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
     outs, launches = [], []
     for dev in (card, "cpu"):
         seeder = ds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F,
@@ -482,6 +427,29 @@ def test_seeder_card_equals_cpu(card, small_world, monkeypatch, B, L,
     assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
     for a, b in zip(outs[0][2][:3], outs[1][2][:3]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_submit_copies_the_upload_before_it_returns(card, small_world):
+    """On the card, as on the CPU (tests/test_torch_seed.py): a chunk's
+    pack buffer overwritten right after `submit_packed` returns, while
+    its step may still run, leaves the result equal to a fresh submit's,
+    in the single-device seeder and over two shards of the card."""
+    index, ref_codes, ref_seqs = small_world
+    B, L = 1 << 15, 100
+    rw = ds._pack_reads(_reads(ref_codes, np.random.default_rng(43), B, L))
+    seeders = [ds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F,
+                               device=card),
+               ds.MeshSeeder(index, ref_seqs, E, MIN_SEEDS, F, [card] * 2)]
+    for seeder in seeders:
+        buf = rw.copy()
+        handle = seeder.submit_packed(buf, B, L)
+        buf[:] = np.uint32(0xFFFFFFFF)
+        got = seeder.resolve(handle)
+        want = seeder.resolve(seeder.submit_packed(rw.copy(), B, L))
+        assert got[3] is False and want[3] is False
+        assert len(got[1]) > 0
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("e", [4, 8])

@@ -221,20 +221,15 @@ def _reads(genome, B: int, L: int, rng) -> np.ndarray:
     return reads
 
 
-@pytest.mark.parametrize("mode", [None, "sortss"])
 def test_probe_kernel_counter_one_a_chunk_through_kernel_e(
-        small_world, monkeypatch, mode):
+        small_world, monkeypatch):
     """A traced pass counts `seeder.probe_kernel` once for each chunk
     whose step launched kernel E (here a stand-in that counts a launch
     and runs the plain probe, as no card is at hand), and never on the
-    plain CPU path or under CHROMAP_TPU_PROBE=sortss."""
+    plain CPU path."""
     index, ref_seqs, genome = small_world
     B, L = 256, 100
     rw = ds._pack_reads(_reads(genome, B, L, np.random.default_rng(9)))
-    if mode is None:
-        monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
-    else:
-        monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
     seeder = ds.DeviceSeeder(index, ref_seqs, 8, 2, (500, 1000),
                              device="cpu")
     assert seeder.probe_table is None
@@ -255,11 +250,7 @@ def test_probe_kernel_counter_one_a_chunk_through_kernel_e(
     monkeypatch.setattr(ds, "index_probe", stand_in)
     got = one_pass(3)
     counters = tracing.last_pass()["counters"]
-    if mode is None:
-        assert stand_in.launches == 3
-        assert counters["seeder.probe_kernel"] == 3
-    else:
-        assert stand_in.launches == 0
-        assert "seeder.probe_kernel" not in counters
+    assert stand_in.launches == 3
+    assert counters["seeder.probe_kernel"] == 3
     for a, b in zip(got[0][:3], plain[0][:3]):
         np.testing.assert_array_equal(a, b)

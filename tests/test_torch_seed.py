@@ -3,10 +3,10 @@ program on the same inputs: kernel C's plain version against
 `_cluster_scan_W`, the probe and the tiled scans, the index build, and the
 whole step -- the port's DeviceSeeder on the CPU must download the same
 bytes `(dl, full)` as the JAX DeviceSeeder, including with the u64 index
-tiers forced on the port's side, on the k > 22 searchsorted probe, under
-both CHROMAP_TPU_PROBE switches (the bucketed probe and forced
-searchsorted), and in split (drop-off) mode on reads spliced at a
-ligation junction."""
+tiers forced on the port's side, on the k > 22 searchsorted probe, and in
+split (drop-off) mode on reads spliced at a ligation junction. The
+seeders copy a chunk's upload before `submit_packed` returns, so the
+caller may reuse its pack buffer at once."""
 
 import sys
 from pathlib import Path
@@ -218,6 +218,32 @@ def test_seeder_download_matches_jax(small_world, B, L):
         np.count_nonzero((results[0][0] >> 24) & tds.FLAG_FALLBACK))
 
 
+def test_submit_copies_the_upload_before_it_returns(small_world):
+    """A chunk's pack buffer overwritten right after `submit_packed`
+    returns, before its resolve, leaves the result equal to a fresh
+    submit's: in the single-device seeder and over a 2-shard CPU mesh.
+    The pipeline's one pack buffer relies on it."""
+    from chromap_tpu_torch.parallel.sharding import make_data_mesh
+    index, ref_codes, ref_seqs = small_world
+    B, L = 96, 80
+    rw = tds._pack_reads(_simulate_reads(ref_codes,
+                                         np.random.default_rng(6), B, L))
+    seeders = [tds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F,
+                                device="cpu"),
+               tds.MeshSeeder(index, ref_seqs, E, MIN_SEEDS, F,
+                              make_data_mesh(2, "cpu"))]
+    for seeder in seeders:
+        buf = rw.copy()
+        handle = seeder.submit_packed(buf, B, L)
+        buf[:] = np.uint32(0xFFFFFFFF)
+        got = seeder.resolve(handle)
+        want = seeder.resolve(seeder.submit_packed(rw.copy(), B, L))
+        assert got[3] is False and want[3] is False
+        assert len(got[1]) > 0
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_seeder_u64_tiers_match_jax(small_world, monkeypatch):
     """The u64 offcnt/occurrence tiers (offsets >= 2^20 or positions >=
     2^24 on real genomes) forced on the port's side only: the download
@@ -255,90 +281,6 @@ def test_seeder_wide_hash_probe_matches_jax():
     assert tdl.tobytes() == dl.tobytes()
     assert tfull.tobytes() == full.tobytes()
     assert dl[0] > 0
-
-
-@pytest.mark.parametrize("k,w", [(17, 7), (23, 11)])
-def test_bucket_probe_table_matches_jax(monkeypatch, k, w):
-    """The bucket table, shift and depth against the JAX seeder's, and
-    the table's meaning: bucket b holds the keys whose top hash bits are
-    b."""
-    monkeypatch.setenv("CHROMAP_TPU_PROBE", "bucket")
-    ref_codes = _genome(21, 20000)
-    index = build_index(ref_codes, k, w)
-    js = jds.DeviceSeeder(index, [_to_seq(g) for g in ref_codes], E,
-                          MIN_SEEDS, F, use_pallas=False)
-    keys = np.asarray(index.hash_keys, dtype=np.uint64)
-    table, shift, depth = tds.bucket_probe_table(keys, k)
-    assert (shift, depth) == js._probe
-    np.testing.assert_array_equal(table, np.asarray(js.probe_table))
-    assert table.dtype == np.int32 and table[0] == 0
-    assert table[-1] == len(keys) and 2 * k - shift >= 10
-    bucket = keys >> np.uint64(shift)
-    np.testing.assert_array_equal(
-        np.repeat(np.arange(len(table) - 1), np.diff(table)), bucket)
-    assert np.diff(table).max() <= 1 << (depth - 1)
-
-
-def _probe_downloads(monkeypatch, mode, index, ref_seqs, reads):
-    """(dl, full) bytes of one chunk from the JAX seeder and the port's
-    with CHROMAP_TPU_PROBE=mode set on both sides (the JAX step re-traced
-    under it), and the port's seeder."""
-    B, L = reads.shape
-    rw = jds._pack_reads(reads)
-    monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
-    monkeypatch.setattr(jds, "_jitted_step",
-                        jds._jitted_step.__wrapped__)   # trace anew
-    js = jds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F,
-                          use_pallas=False)
-    (dl, full, _), _, _ = js.submit_packed(rw, B, L)
-    ts = tds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F, device="cpu")
-    (tdl, tfull, _, _), _, _ = ts.submit_packed(rw, B, L)
-    return ((np.asarray(dl).tobytes(), np.asarray(full).tobytes()),
-            (tdl.numpy().tobytes(), tfull.numpy().tobytes()), ts)
-
-
-@pytest.mark.parametrize("mode", ["bucket", "sortss"])
-@pytest.mark.parametrize("B,L", [(96, 80), (1 << 15, 48)])
-def test_seeder_probe_switch_matches_jax(small_world, monkeypatch, mode, B,
-                                         L):
-    """CHROMAP_TPU_PROBE=bucket (the bucketed search) and =sortss
-    (searchsorted forced): the port's download equals the JAX seeder's
-    under the same switch and the port's merge-sort download."""
-    index, ref_codes, ref_seqs = small_world
-    reads = _simulate_reads(ref_codes, np.random.default_rng(5), B, L)
-    rw = tds._pack_reads(reads)
-    merge = tds.DeviceSeeder(index, ref_seqs, E, MIN_SEEDS, F, device="cpu")
-    assert merge.probe is None
-    (mdl, mfull, _, _), _, _ = merge.submit_packed(rw, B, L)
-    want, got, ts = _probe_downloads(monkeypatch, mode, index, ref_seqs,
-                                     reads)
-    if mode == "bucket":
-        assert isinstance(ts.probe, tuple) and ts.keys_lo.dtype == torch.int32
-        assert ts.probe_table.numel() == (1 << (2 * 17 - ts.probe[0])) + 1
-    else:
-        assert ts.probe == "sortss" and ts.probe_table is None
-    assert got == want
-    assert got == (mdl.numpy().tobytes(), mfull.numpy().tobytes())
-    assert np.frombuffer(got[0][:4], np.uint32)[0] > 0
-
-
-def test_probe_switch_keys_the_caches(small_world, monkeypatch):
-    """A seeder built under one CHROMAP_TPU_PROBE is not served to a run
-    under another, and the step is built per probe."""
-    index, _, ref_seqs = small_world
-    seeders = []
-    for mode in (None, "bucket", "sortss"):
-        if mode is None:
-            monkeypatch.delenv("CHROMAP_TPU_PROBE", raising=False)
-        else:
-            monkeypatch.setenv("CHROMAP_TPU_PROBE", mode)
-        seeders.append(tds.get_device_seeder(
-            index, ref_seqs, E, MIN_SEEDS, F, cache_key=("probe-test",),
-            device="cpu"))
-    assert [s.probe is None for s in seeders] == [True, False, False]
-    assert len({id(s) for s in seeders}) == 3
-    assert len({id(s._step) for s in seeders}) == 3
-    tds._seeder_cache.clear()
 
 
 def _spliced_reads(ref_codes, seed: int, B: int, L: int):

@@ -78,7 +78,7 @@ def test_stage_names_match_the_jax_tool():
 def _port_call(seeder, rw, split: bool, stop):
     step = tds._build_step(seeder.k, seeder.w, seeder.e, seeder.f0,
                            seeder.f1, seeder.min_num_seeds, seeder.num_refs,
-                           split, seeder.probe, stop=stop)
+                           split, stop=stop)
     lengths = torch.full((B,), L, dtype=torch.int32)
     return step(from_numpy_u32(rw), lengths, *seeder._index_operands(),
                 L=L, B=B, Mtot=tds.MZ_PER_READ * B,
@@ -205,8 +205,7 @@ def test_bench_on_cuda_without_a_card_fails(tmp_path):
 
 TOOLS = {
     "stage_profile": ["--rows", 256, "--reps", 1],
-    "stage_profile_split": ["--rows", 256, "--reps", 1, "--split",
-                            "--probe", "bucket"],
+    "stage_profile_split": ["--rows", 256, "--reps", 1, "--split"],
     "full_time": ["--rows", 256, "--reps", 1, "--stops", "cluster,probe"],
     "primitives": [],
     "bench_parity": [2000, 1, 128],

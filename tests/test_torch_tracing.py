@@ -2,8 +2,10 @@
 `--device --torch-device cpu --device-batch-size 512`. With
 CHROMAP_TPU_HYBRID_PROFILE set, a full-native BED run, a `--preset hic`
 run and a `--preset chip` run (the records flow, with low-memory spill
-and merge) each print one HYBRID_PROFILE line a pass, with the spans and
-counters the flow takes; the spans nest and their self times add up;
+and merge), and two single-end runs (full-native BED and the records
+flow's SAM) each print one HYBRID_PROFILE line a pass, with the spans
+and counters the flow takes, the device-chunk scheduler's groups in
+every one; the spans nest and their self times add up;
 the output stage's C++ stamps nest inside output.native; the records
 flows read their FASTQ natively, one records.native_batches a
 records.read; the outputs equal the untraced run's. Unset, nothing is printed or kept. The clock
@@ -48,19 +50,27 @@ RECORDS_SPANS = DEVICE_SPANS | {"records.read", "records.pack", "hybrid",
 LOWMEM_COUNTERS = COUNTERS | {"lowmem.spills", "lowmem.spill_rows",
                               "lowmem.merge_rows_out",
                               "records.native_batches"}
+# full-native BED: native FASTQ reader, the scheduler's slot copies, the
+# native output stage
+FULL_NATIVE_SPANS = DEVICE_SPANS | {"fastq.wait", "hybrid.copy",
+                                    "output.concat", "output.native",
+                                    "output.sort", "output.write"}
+# (options, output, spans, counters, paired)
 FLOWS = {
-    # full-native BED: native FASTQ reader, the hybrid scheduler's slot
-    # copies, the native output stage
-    "bed": ([], "out.bed", DEVICE_SPANS | {
-        "fastq.wait", "hybrid.copy", "output.concat", "output.native",
-        "output.sort", "output.write"}, COUNTERS),
+    "bed": ([], "out.bed", FULL_NATIVE_SPANS, COUNTERS, True),
     # Hi-C: .pairs records, spilled as record objects
     "hic": (["--preset", "hic"], "out.pairs", RECORDS_SPANS,
-            LOWMEM_COUNTERS),
+            LOWMEM_COUNTERS, True),
     # --preset chip: BED rows stashed as arrays, the array spill and the
     # native merge with its PCR dedup
     "chip": (["--preset", "chip"], "out.bed", RECORDS_SPANS,
-             LOWMEM_COUNTERS),
+             LOWMEM_COUNTERS, True),
+    # single-end, -1 alone: the full-native BED flow, and the records
+    # flow's SAM through the Python output stage
+    "se_bed": ([], "out.bed", FULL_NATIVE_SPANS, COUNTERS, False),
+    "se_sam": (["--SAM"], "out.sam", DEVICE_SPANS | {
+        "records.read", "records.pack", "hybrid", "records.emit",
+        "output.sort", "output.write"}, COUNTERS, False),
 }
 
 
@@ -75,15 +85,16 @@ def sim_data(tmp_path_factory):
 
 
 def _run(d, flow, traced):
-    extra, out_name, _, _ = FLOWS[flow]
+    extra, out_name, _, _, paired = FLOWS[flow]
     tag = "on" if traced else "off"
     out = d / f"{flow}.{tag}.{out_name}"
     dump = d / f"{flow}.{tag}.json"
     env = dict(ENV, **({tracing.SWITCH: "1"} if traced else {}))
+    reads = ["-1", f"{d}/r1.fq"] + (["-2", f"{d}/r2.fq"] if paired else [])
     res = subprocess.run(
         [sys.executable, "-c", RUN, str(dump), "-x", f"{d}/index",
-         "-r", f"{d}/ref.fa", "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq",
-         "-o", str(out)] + DEVICE_ARGS + extra,
+         "-r", f"{d}/ref.fa"] + reads + ["-o", str(out)] + DEVICE_ARGS
+        + extra,
         capture_output=True, text=True, cwd=ROOT, env=env)
     assert res.returncode == 0, res.stderr
     assert "Using CPU (plain torch) device seeding" in res.stderr
@@ -111,9 +122,10 @@ def test_one_profile_line_a_pass_with_the_flows_spans(runs, flow):
     assert line["pass_s"] == line["spans"]["pass"][1]
     assert line["counters"]["chunks.dev"] > 0
     assert line["counters"]["chunks.cpu"] > 0
-    # the host chunks hold some of the 5000 pairs, the device chunks the
-    # rest
+    # the host chunks hold some of the 5000 pairs (reads), the device
+    # chunks the rest
     assert 0 < line["counters"]["pairs.cpu"] < 5000
+    assert line["counters"]["hybrid.flushes"] > 0
     # the keys read before the spans existed, from the spans that time
     # the same code
     for key, name in tracing.LEGACY_SPANS.items():
