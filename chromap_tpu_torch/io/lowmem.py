@@ -120,6 +120,15 @@ SE_SPILL_DT = np.dtype({
     "formats": ["<u4", "<u8", "<u4", "<u2", "u1", "u1", "u1", "u1", "u1"],
     "offsets": [0, 4, 12, 16, 18, 19, 20, 21, 22],
     "itemsize": 23})
+# _PAIRS_S ("<IQiiIIBBBBB", records.py): a .pairs row's fixed bytes, which
+# its u16-length-prefixed read name follows in a shard
+PAIRS_SPILL_DT = np.dtype({
+    "names": ["read_id", "barcode", "rid1", "rid2", "pos1", "pos2",
+              "strand1", "strand2", "mapq", "uniq", "dups"],
+    "formats": ["<u4", "<u8", "<i4", "<i4", "<u4", "<u4", "u1", "u1", "u1",
+                "u1", "u1"],
+    "offsets": [0, 4, 12, 16, 20, 24, 28, 29, 30, 31, 32],
+    "itemsize": 33})
 
 
 def _spill_base(cfg: MappingConfig, base: str) -> str:
@@ -168,6 +177,49 @@ def spill_bed_arrays(cfg: MappingConfig, chunks: List[tuple], num_refs: int,
             if counts[r]:
                 f.write(raw[bounds[r] * isz:bounds[r + 1] * isz])
     tracing.count("lowmem.spill_rows", len(arr))
+    shard_paths.append(path)
+
+
+def spill_pairs_arrays(cfg: MappingConfig, chunks: List[tuple],
+                       num_refs: int, shard_paths: List[str],
+                       base: str = None) -> None:
+    """Spill of .pairs rows collected as (rid1 array, PAIRS_SPILL_DT rows,
+    names blob as uint8, name starts, name lengths) chunks -- the array
+    analog of spill_mappings over PairsRecords, byte-identical to it: the
+    native cn_spill_pairs sorts the rows stably by (rid1,
+    PairsRecord.sort_key), so full ties keep their emit order as list.sort
+    does, and writes the tag-6 CTSH1 shard."""
+    from ..native import _ptr, load_library
+
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError(".pairs array spill needs the native engine")
+
+    def joined(parts, dtype) -> np.ndarray:
+        parts = list(parts)
+        return np.ascontiguousarray(
+            np.concatenate(parts) if parts else np.empty(0, dtype), dtype)
+
+    rid = joined((c[0] for c in chunks), np.int64)
+    rows = joined((c[1] for c in chunks), PAIRS_SPILL_DT)
+    names = joined((c[2] for c in chunks), np.uint8)
+    shift = np.cumsum([0] + [len(c[2]) for c in chunks[:-1]])
+    starts = joined((c[3] + s for c, s in zip(chunks, shift)), np.int64)
+    lens = joined((c[4] for c in chunks), np.int64)
+    if not len(rid) == len(rows) == len(starts) == len(lens) or (
+            len(lens) and (starts.min() < 0 or lens.min() < 0
+                           or (starts + lens).max() > len(names))):
+        raise ValueError(".pairs spill rows and their names do not match")
+    path = f"{_spill_base(cfg, base)}.temp{len(shard_paths)}"
+    written = lib.cn_spill_pairs(path.encode(), num_refs, len(rid),
+                                 _ptr(rid), _ptr(rows), _ptr(names),
+                                 _ptr(starts), _ptr(lens))
+    if written == -1:
+        raise ValueError("a .pairs row with its rid out of range or a read "
+                         "name over 65535 bytes")
+    if written < 0:
+        raise OSError(f"cannot write the spill file {path}")
+    tracing.count("lowmem.spill_rows", len(rid))
     shard_paths.append(path)
 
 

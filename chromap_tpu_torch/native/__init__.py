@@ -263,6 +263,11 @@ def load_library():
     lib.cn_get_lowmem_summary.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.cn_spill_pairs.restype = ctypes.c_int64
+    lib.cn_spill_pairs.argtypes = [
+        ctypes.c_char_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     _lib = lib
     return lib
 

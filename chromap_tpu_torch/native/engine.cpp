@@ -5423,4 +5423,85 @@ int64_t cn_get_lowmem_summary(CnContext* ctx, const uint64_t** keys,
   return (int64_t)ctx->lowmem_sum_keys.size();
 }
 
+// One .pairs spill shard from arrays (io/lowmem.py spill_pairs_arrays),
+// the same bytes TempMappingShard.write gives for the PairsRecords: rows
+// sorted stably by (rid1, PairsRecord.sort_key) = (rid1, rid2, pos1, pos2,
+// mapq, read_id); "CTSH1\0", tag 6 (0 for no rows), u64 rid count; per rid
+// a u64 row count, then each row's 33 fixed bytes (records.py _PAIRS_S),
+// u16 name length and name. `rows` holds the n rows' fixed bytes, row i's
+// name is names[name_start[i], + name_len[i]). Returns n, -1 for a rid
+// out of [0, num_refs) or a name over 65535 bytes, -2 when the file cannot
+// be written.
+int64_t cn_spill_pairs(const char* path, int32_t num_refs, int64_t n,
+                       const int64_t* rid, const uint8_t* rows,
+                       const uint8_t* names, const int64_t* name_start,
+                       const int64_t* name_len) {
+  struct Key {
+    int64_t rid1;
+    int32_t rid2;
+    uint32_t pos1, pos2;
+    uint8_t mapq;
+    uint32_t read_id;
+    int64_t row;  // emit order: full ties keep it
+  };
+  std::vector<Key> keys((size_t)n);
+  std::vector<uint64_t> counts((size_t)std::max(num_refs, 0), 0);
+  for (int64_t i = 0; i < n; ++i) {
+    if (rid[i] < 0 || rid[i] >= num_refs || name_len[i] < 0 ||
+        name_len[i] > 0xFFFF)
+      return -1;
+    const uint8_t* p = rows + 33 * i;
+    Key& k = keys[(size_t)i];
+    k.rid1 = rid[i];
+    memcpy(&k.read_id, p, 4);
+    memcpy(&k.rid2, p + 16, 4);
+    memcpy(&k.pos1, p + 20, 4);
+    memcpy(&k.pos2, p + 24, 4);
+    k.mapq = p[30];
+    k.row = i;
+    counts[(size_t)rid[i]] += 1;
+  }
+  std::sort(keys.begin(), keys.end(), [](const Key& a, const Key& b) {
+    if (a.rid1 != b.rid1) return a.rid1 < b.rid1;
+    if (a.rid2 != b.rid2) return a.rid2 < b.rid2;
+    if (a.pos1 != b.pos1) return a.pos1 < b.pos1;
+    if (a.pos2 != b.pos2) return a.pos2 < b.pos2;
+    if (a.mapq != b.mapq) return a.mapq < b.mapq;
+    if (a.read_id != b.read_id) return a.read_id < b.read_id;
+    return a.row < b.row;
+  });
+  FILE* f = fopen(path, "wb");
+  if (!f) return -2;
+  std::vector<uint8_t> buf;
+  buf.reserve(1 << 19);
+  bool ok = true;
+  auto put = [&](const void* src, size_t len) {
+    const uint8_t* q = (const uint8_t*)src;
+    buf.insert(buf.end(), q, q + len);
+    if (buf.size() >= (1 << 18)) {
+      ok = ok && fwrite(buf.data(), 1, buf.size(), f) == buf.size();
+      buf.clear();
+    }
+  };
+  const uint8_t tag = n ? 6 : 0;
+  const uint64_t refs = (uint64_t)std::max(num_refs, 0);
+  put("CTSH1\0", 6);
+  put(&tag, 1);
+  put(&refs, 8);
+  size_t next = 0;
+  for (uint64_t r = 0; r < refs; ++r) {
+    put(&counts[r], 8);
+    for (uint64_t c = 0; c < counts[r]; ++c) {
+      const int64_t i = keys[next++].row;
+      const uint16_t len = (uint16_t)name_len[i];
+      put(rows + 33 * i, 33);
+      put(&len, 2);
+      put(names + name_start[i], len);
+    }
+  }
+  ok = ok && fwrite(buf.data(), 1, buf.size(), f) == buf.size();
+  ok = (fclose(f) == 0) && ok;
+  return ok ? n : -2;
+}
+
 }  // extern "C"

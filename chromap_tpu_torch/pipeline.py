@@ -62,6 +62,71 @@ def _starts_fastq(path: str) -> bool:
             return f.read(1) == b"@"
 
 
+def _pairs_ends(out, rank):
+    """Each mapping's .pairs ends as pairs_mapping.h orders them: the
+    positions (5' ends) and strands (1 positive) swap unless rid1 ranks
+    before rid2, or the two share a rid and pos1 < pos2; rid1 and rid2
+    never swap. Returns (pos1, pos2, strand1, strand2) arrays."""
+    rid1 = out["rid"].astype(np.int64)
+    rid2 = out["rid2"].astype(np.int64)
+    neg1, neg2 = out["dir"] == 0, out["dir2"] == 0
+    pos1 = np.where(neg1, out["re1"], out["rs1"])
+    pos2 = np.where(neg2, out["re2"], out["rs2"])
+    if rank:
+        rank = np.asarray(rank, dtype=np.int64)
+        rank1, rank2 = rank[rid1], rank[rid2]
+    else:
+        rank1, rank2 = rid1, rid2
+    keep = (rank1 < rank2) | ((rid1 == rid2) & (pos1 < pos2))
+    return (np.where(keep, pos1, pos2), np.where(keep, pos2, pos1),
+            np.where(keep, ~neg1, ~neg2),
+            np.where(keep, ~neg2, ~neg1))
+
+
+def _pairs_spill_chunk(out, j, read_ids, names, name_at, barcodes, rank):
+    """One batch's .pairs rows as a spill chunk for io/lowmem.py's
+    spill_pairs_arrays: (rid1, PAIRS_SPILL_DT rows, the batch's names as
+    uint8, each row's name start and length). Row i is read j[i] of the
+    batch, whose id is read_ids[j], name names[name_at[j]:name_at[j + 1]]
+    and barcode key barcodes[j] (0 without barcodes)."""
+    from .io.lowmem import PAIRS_SPILL_DT
+    rid1 = out["rid"].astype(np.int64)
+    arr = np.zeros(len(rid1), dtype=PAIRS_SPILL_DT)
+    arr["read_id"] = read_ids[j]
+    if barcodes is not None:
+        arr["barcode"] = np.asarray(barcodes, dtype=np.uint64)[j]
+    arr["rid1"] = rid1
+    arr["rid2"] = out["rid2"]
+    (arr["pos1"], arr["pos2"], arr["strand1"],
+     arr["strand2"]) = _pairs_ends(out, rank)
+    arr["mapq"] = out["mapq"]
+    arr["uniq"] = out["uniq"]
+    arr["dups"] = 1
+    starts = name_at[j]
+    return (rid1, arr, np.frombuffer(names, dtype=np.uint8), starts,
+            name_at[j + 1] - starts)
+
+
+def _emit_pairs_records(out, j, read_ids, names, name_at, barcodes, rank,
+                        emit) -> None:
+    """The same rows as _pairs_spill_chunk, one PairsRecord each, for the
+    runs that keep their mappings in memory."""
+    from .mapping.records import PairsRecord
+    pos1, pos2, strand1, strand2 = (a.tolist()
+                                    for a in _pairs_ends(out, rank))
+    o_j, ids, at = j.tolist(), read_ids.tolist(), name_at.tolist()
+    o_rid, o_rid2 = out["rid"].tolist(), out["rid2"].tolist()
+    o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
+    for i in range(len(o_rid)):
+        r = o_j[i]
+        emit(o_rid[i], PairsRecord(
+            read_id=ids[r], read_name=names[at[r]:at[r + 1]],
+            barcode=(int(barcodes[r]) if barcodes is not None else 0),
+            rid1=o_rid[i], rid2=o_rid2[i], pos1=pos1[i], pos2=pos2[i],
+            strand1=int(strand1[i]), strand2=int(strand2[i]),
+            mapq=o_mapq[i], is_unique=o_uniq[i], num_dups=1))
+
+
 def construct_index(cfg: IndexConfig) -> None:
     t0 = time.time()
     records = load_all_sequences(cfg.reference_file_path)
@@ -301,6 +366,8 @@ class MappingPipeline:
         self.mappings_on_refs: List[List[object]] = [
             [] for _ in self.reference]
         self.temp_shard_paths: List[str] = []
+        # .pairs rows waiting for a spill as arrays (_pairs_spill_chunk)
+        self._spill_pairs: List[tuple] = []
         self.num_mappings_in_mem = 0
         # reference budgets are bytes (1 GiB, or 0.5 GiB for SAM/PAF/pairs,
         # chromap.h:782-788); expressed here as record counts
@@ -916,29 +983,35 @@ class MappingPipeline:
         chunks.append((rid_a.astype(np.int64), arr))
         self.num_mappings_in_mem += n
 
-    def _array_spill_ok(self) -> bool:
-        """BED-family low-mem/shard runs collect mapping rows as numpy
-        chunks and spill them vectorized (spill_pe_arrays); record objects
-        remain for text formats, the matrix, and allocation."""
+    def _array_spill_ok(self, formats=("bed", "tagalign")) -> bool:
+        """Low-mem/shard runs in these output formats collect mapping rows
+        as numpy chunks and spill them vectorized (spill_bed_arrays for
+        BED and TagAlign, spill_pairs_arrays for .pairs); record objects
+        remain for the other formats, the matrix, and allocation."""
         cfg = self.cfg
         return ((cfg.low_memory_mode or cfg.num_shards > 1)
-                and cfg.output_format in ("bed", "tagalign")
+                and cfg.output_format in formats
                 and not cfg.matrix_output_prefix
                 and not cfg.allocate_multi_mappings)
 
     @tracing.traced("lowmem.spill")
     def _spill_now(self, base) -> None:
-        from .io.lowmem import spill_mappings, spill_bed_arrays
+        from .io.lowmem import (spill_bed_arrays, spill_mappings,
+                                spill_pairs_arrays)
         files = len(self.temp_shard_paths)
         chunks = getattr(self, "_spill_chunks", None)
+        arrays = bool(chunks or self._spill_pairs)
         if chunks:
             spill_bed_arrays(self.cfg, chunks, len(self.ref_names),
                              self.temp_shard_paths, base=base)
             chunks.clear()
-            if any(self.mappings_on_refs):  # defensive: mixed emitters
-                spill_mappings(self.cfg, self.mappings_on_refs,
-                               self.temp_shard_paths, base=base)
-        else:
+        elif self._spill_pairs:
+            spill_pairs_arrays(self.cfg, self._spill_pairs,
+                               len(self.ref_names), self.temp_shard_paths,
+                               base=base)
+            self._spill_pairs.clear()
+        if not arrays or any(self.mappings_on_refs):
+            # defensive where arrays spilled: mixed emitters
             spill_mappings(self.cfg, self.mappings_on_refs,
                            self.temp_shard_paths, base=base)
         tracing.count("lowmem.spills", len(self.temp_shard_paths) - files)
@@ -1696,12 +1769,13 @@ class MappingPipeline:
 
     def _map_batch_native_pairs(self, engine, batch1, batch2, threshold,
                                 emit, batch_bc=None) -> None:
-        """4DN pairs (non-split) through the C++ mapper: per-end positions
-        come from the extended outputs; rid flipping by the custom order
-        follows pairs_mapping.h / select.py exactly. Barcoded runs
-        prefilter on the whitelist and carry the barcode key."""
-        from .mapping.records import PairsRecord
-
+        """4DN pairs through the C++ mapper: per-end positions come from
+        the extended outputs; rid flipping by the custom order follows
+        pairs_mapping.h / select.py exactly (_pairs_ends). A run that
+        spills (_array_spill_ok) keeps the rows as arrays up to the spill
+        file (_pairs_spill_chunk); one that keeps them in memory makes one
+        PairsRecord a mapping. Barcoded runs prefilter on the whitelist and
+        carry the barcode key."""
         if self.cfg.split_alignment and \
                 not getattr(engine, "_split_mode_set", False):
             engine.set_split_mode()
@@ -1713,12 +1787,8 @@ class MappingPipeline:
                 blob1 = batch1.bases, batch1.offsets
                 blob2 = batch2.bases, batch2.offsets
                 base_read_id = batch1.first_id
-                names = batch1.names
-                name_at = batch1.name_offsets.tolist()
-
-                def read_of(j):
-                    return (base_read_id + j,
-                            names[name_at[j]:name_at[j + 1]])
+                read_ids = batch1.read_ids()
+                names, name_at = batch1.names, batch1.name_offsets
             else:
                 if batch_bc is not None:
                     reads1, reads2, barcodes, sel = \
@@ -1731,10 +1801,10 @@ class MappingPipeline:
                     sel = range(len(batch1))
                     base_read_id = batch1[0].read_id if batch1 else 0
                 blob1, blob2 = _blob(reads1), _blob(reads2)
-
-                def read_of(j):
-                    rec = batch1[sel[j]]
-                    return int(rec.read_id), rec.name
+                picked = [batch1[i] for i in sel]
+                read_ids = np.fromiter((r.read_id for r in picked),
+                                       dtype=np.int64, count=len(picked))
+                names, name_at = _blob([r.name for r in picked])
         n = len(blob1[1]) - 1
         if not n:
             return
@@ -1746,37 +1816,17 @@ class MappingPipeline:
             if batch_bc is not None:
                 self._native_barcode_cachehits(engine, out, n,
                                                barcodes, flags=info.flags)
+            j = out["read_id"].astype(np.int64) - base_read_id
             rank = self.pairs_custom_rid_rank
-            rid_a = out["rid"]
-            o_read_id = out["read_id"].tolist()
-            o_rid, o_rid2 = rid_a.tolist(), out["rid2"].tolist()
-            o_dir, o_dir2 = out["dir"].tolist(), out["dir2"].tolist()
-            o_rs1, o_re1 = out["rs1"].tolist(), out["re1"].tolist()
-            o_rs2, o_re2 = out["rs2"].tolist(), out["re2"].tolist()
-            o_mapq, o_uniq = out["mapq"].tolist(), out["uniq"].tolist()
-            for i in range(len(rid_a)):
-                j = o_read_id[i] - base_read_id
-                read_id, read_name = read_of(j)
-                rid = o_rid[i]
-                first_negative = o_dir[i] == 0
-                second_negative = o_dir2[i] == 0
-                strand1 = 0 if first_negative else 1
-                strand2 = 0 if second_negative else 1
-                pos1 = o_re1[i] if first_negative else o_rs1[i]
-                pos2 = o_re2[i] if second_negative else o_rs2[i]
-                rid1, rid2 = rid, o_rid2[i]
-                r1_rank = rank[rid1] if rank else rid1
-                r2_rank = rank[rid2] if rank else rid2
-                if not (r1_rank < r2_rank or (rid1 == rid2 and pos1 < pos2)):
-                    pos1, pos2 = pos2, pos1
-                    strand1, strand2 = strand2, strand1
-                emit(rid1, PairsRecord(
-                    read_id=read_id, read_name=read_name,
-                    barcode=(int(barcodes[j]) if barcodes is not None else 0),
-                    rid1=rid1, rid2=rid2, pos1=pos1, pos2=pos2,
-                    strand1=strand1, strand2=strand2,
-                    mapq=o_mapq[i],
-                    is_unique=o_uniq[i], num_dups=1))
+            if self._array_spill_ok(("pairs",)):
+                chunk = _pairs_spill_chunk(out, j, read_ids, names,
+                                           name_at, barcodes, rank)
+                self._spill_pairs.append(chunk)
+                self.num_mappings_in_mem += len(chunk[0])
+                tracing.count("records.pairs_array_batches")
+            else:
+                _emit_pairs_records(out, j, read_ids, names, name_at,
+                                    barcodes, rank, emit)
         self.num_candidates += int(stats[0])
         self.num_mappings += int(stats[1])
         self.num_mapped_reads += int(stats[2])

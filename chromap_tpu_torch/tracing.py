@@ -47,7 +47,11 @@ Spans (per pass, chunk, group or stage, never per read):
     native.finish    the native finish of a device-seeded chunk, or the
                      host map of one whose candidates overflowed
     native.cpu_map   the native engine mapping a host chunk
-    records.emit     turning a batch's mapping arrays into records
+    records.emit     turning a batch's mapping arrays into records, or,
+                     where the run spills (low-memory mode, --num-shards
+                     > 1), into numpy rows stashed for the spill: BED and
+                     TagAlign rows, and .pairs rows with their ends
+                     ordered and their read names' offsets
     lowmem.spill     writing sorted spill files (low-memory mode)
     lowmem.merge     merging the spill files into the output
     output.concat    joining the chunks' mapping arrays
@@ -66,7 +70,11 @@ the group size G the scheduler had set for it), seeder.probe_kernel
 ops/device_seed.py `index_probe`), records.native_batches (a read of the
 paired records flow that the native reader made, pipeline.py
 `_native_pair_stream`: one a records.read span where it engages, none
-where it does not), and in low-memory mode
+where it does not), records.pairs_array_batches (a batch of the .pairs
+flow whose rows were stashed as arrays, `_map_batch_native_pairs`: one a
+batch with reads to map, so one less than the records.read spans of a
+low-memory or sharded .pairs pass, whose last read finds the input's
+end; none where the rows become PairsRecords), and in low-memory mode
 lowmem.spills (spill files written), lowmem.spill_rows (the rows written
 to them), lowmem.merge_rows_out (the lines the merge wrote) and
 lowmem.merge_per_record (once a merge that took the per-record Python

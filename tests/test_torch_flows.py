@@ -5,7 +5,8 @@ byte-match the reference chromap golden (which the JAX package's device
 path matches too). The Hi-C flow (`--preset hic`: split alignment, pairs
 output, low-memory mode) goes through the split seeder the same way and
 must byte-match its goldens, plain, with `--chr-order` /
-`--pairs-natural-chr-order`, and barcoded. Also pinned: thread-count
+`--pairs-natural-chr-order`, and barcoded, its `.pairs` rows kept as
+arrays up to the spill file. Also pinned: thread-count
 invariance, that a device failure raises instead of mapping on the host,
 that CUDA without a card raises, that `--mesh-devices 0` is one device
 on the CPU, that runs beyond the step's packed-candidate format fail
@@ -13,6 +14,7 @@ before any output, and that the package neither imports nor needs JAX or
 the JAX package (on the device path and through the batch engine)."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -69,12 +71,32 @@ def mc_data(tmp_path_factory):
     return d
 
 
-def _map(d, out, extra, ref=None, index=None):
-    args = [sys.executable, "-m", "chromap_tpu_torch.cli",
-            "-x", str(index or f"{d}/index"), "-r", str(ref or f"{d}/ref.fa"),
-            "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-o", str(out)] + extra
+# runs the CLI with the tracer on, then prints how many PairsRecords the
+# run made
+COUNT_PAIRS_RECORDS = (
+    "import sys\n"
+    "from chromap_tpu_torch import cli\n"
+    "from chromap_tpu_torch.mapping.records import PairsRecord\n"
+    "made, init = [], PairsRecord.__init__\n"
+    "def counted(self, *args, **kwargs):\n"
+    "    made.append(1)\n"
+    "    init(self, *args, **kwargs)\n"
+    "PairsRecord.__init__ = counted\n"
+    "rc = cli.parse_args_and_run(sys.argv[1:])\n"
+    "print(f'PAIRS_RECORDS {len(made)}', file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def _map(d, out, extra, ref=None, index=None, count_pairs_records=False):
+    args = ([sys.executable, "-c", COUNT_PAIRS_RECORDS]
+            if count_pairs_records
+            else [sys.executable, "-m", "chromap_tpu_torch.cli"]) + [
+        "-x", str(index or f"{d}/index"), "-r", str(ref or f"{d}/ref.fa"),
+        "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-o", str(out)] + extra
+    env = dict(ENV, CHROMAP_TPU_HYBRID_PROFILE="1") if count_pairs_records \
+        else ENV
     return subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
-                          env=ENV)
+                          env=env)
 
 
 def test_port_index_file_matches_jax_cli(sim_data):
@@ -106,13 +128,25 @@ HIC_CASES = [
 def test_cli_hic_device_cpu_matches_golden(golden, data, extra, request,
                                            golden_dir, tmp_path):
     """Split alignment on the device path: drop-off Myers and the 5'-gap
-    retry per candidate, the split download, the pairs records flow."""
+    retry per candidate, the split download, the pairs records flow with
+    its rows kept as arrays up to the spill file (one
+    records.pairs_array_batches a batch that held reads, no PairsRecord
+    made) and the native merge."""
     d = request.getfixturevalue(data)
     out = tmp_path / golden
-    res = _map(d, out, [a.format(d=d) for a in extra] + DEVICE_ARGS)
+    res = _map(d, out, [a.format(d=d) for a in extra] + DEVICE_ARGS,
+               count_pairs_records=True)
     assert res.returncode == 0, res.stderr
     assert "Using CPU (plain torch) device seeding" in res.stderr
     assert out.read_bytes() == (golden_dir / golden).read_bytes()
+    (line,) = [json.loads(text.split(" ", 1)[1])
+               for text in res.stderr.splitlines()
+               if text.startswith("HYBRID_PROFILE ")]
+    counters = line["counters"]
+    assert counters["records.pairs_array_batches"] == \
+        line["spans"]["records.read"][0] - 1
+    assert "lowmem.merge_per_record" not in counters
+    assert "PAIRS_RECORDS 0" in res.stderr.splitlines()
 
 
 def test_cli_device_threads_invariant(sim_data, tmp_path):

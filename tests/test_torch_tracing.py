@@ -8,7 +8,8 @@ and counters the flow takes, the device-chunk scheduler's groups in
 every one; the spans nest and their self times add up;
 the output stage's C++ stamps nest inside output.native; the records
 flows read their FASTQ natively, one records.native_batches a
-records.read; the outputs equal the untraced run's. Unset, nothing is printed or kept. The clock
+records.read, and Hi-C stashes its .pairs rows as arrays, one
+records.pairs_array_batches a batch; the outputs equal the untraced run's. Unset, nothing is printed or kept. The clock
 anchor is held against a CPU-only torch.profiler."""
 
 import json
@@ -58,9 +59,10 @@ FULL_NATIVE_SPANS = DEVICE_SPANS | {"fastq.wait", "hybrid.copy",
 # (options, output, spans, counters, paired)
 FLOWS = {
     "bed": ([], "out.bed", FULL_NATIVE_SPANS, COUNTERS, True),
-    # Hi-C: .pairs records, spilled as record objects
+    # Hi-C: .pairs rows stashed as arrays (records.pairs_array_batches),
+    # the array spill and the native merge
     "hic": (["--preset", "hic"], "out.pairs", RECORDS_SPANS,
-            LOWMEM_COUNTERS, True),
+            LOWMEM_COUNTERS | {"records.pairs_array_batches"}, True),
     # --preset chip: BED rows stashed as arrays, the array spill and the
     # native merge with its PCR dedup
     "chip": (["--preset", "chip"], "out.bed", RECORDS_SPANS,
@@ -186,6 +188,9 @@ def test_native_reads_count_one_a_records_read(runs, flow):
     # the 5000 pairs in one batch, then the read that finds none
     assert reads == 2
     assert line["counters"]["records.native_batches"] == reads
+    if flow == "hic":
+        # one array stash a batch that held reads
+        assert line["counters"]["records.pairs_array_batches"] == reads - 1
 
 
 def test_output_stamps_nest_inside_output_native(runs):
