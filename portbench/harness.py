@@ -18,8 +18,11 @@ metric is read from the device trace, every pass, the warm ones too (so
 the hybrid scheduler settles under the same load), runs under a profiler
 of the device's activity alone, one profile a pass.
 
-Then the program's state is freed and the reference checks the last
-pass's output (reference/check.py).
+Then the program's state is freed and the configuration's output check
+(`Spec.checker`: `checks/<name>.py`, or reference/check.py) judges the
+last pass's output, named `out.<output format>`, and the metrics are
+read. Last, the run fails if the process holds JAX or the JAX package,
+whatever loaded it: the program, the check or a metric's reader.
 """
 
 from __future__ import annotations
@@ -34,9 +37,8 @@ import re
 import shutil
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-from .reference import check as refcheck
 from .spec import Spec
 from .trace import (Instruments, kernel_name, kernel_seconds, kineto_events,
                     reduce_trace)
@@ -105,8 +107,27 @@ def make_reads(spec: Spec, data: str, cell: str, mix: dict, fasta: str,
     return spec.generator(mix).write_lanes(rdir, fasta, mix, seed)
 
 
-def mapping_config(conf: dict, gdir: str, lanes: List[dict], out: str,
+def barcode_inputs(lanes: List[dict]) -> Tuple[List[str], str]:
+    """The lanes' barcode reads (`bc`, in lane order) and their whitelist
+    (one file, named alike by every lane); ([], "") for bulk lanes."""
+    bcs = [lane.get("bc") for lane in lanes]
+    lists = [lane.get("whitelist") for lane in lanes]
+    for i, lane in enumerate(lanes):
+        if bool(bcs[i]) != bool(bcs[0]):
+            raise ValueError(f"lane {i} ({lane['r1']}): a barcode read "
+                             "`bc` in some lanes and not in others")
+        if lists[i] != lists[0]:
+            raise ValueError(f"lane {i} ({lane['r1']}) names the whitelist "
+                             f"{lists[i]!r}, lane 0 {lists[0]!r}")
+    if lists[0] and not bcs[0]:
+        raise ValueError("the lanes name a whitelist and no barcode read")
+    return (bcs if bcs[0] else []), (lists[0] or "")
+
+
+def mapping_config(conf: dict, gdir: str, lanes: List[dict], rdir: str,
                    device: str, options: Optional[dict] = None):
+    """The program's MappingConfig for the lanes; its output is
+    `rdir`/out.<output format>."""
     from chromap_tpu_torch.config import MappingConfig, apply_preset
     cfg = MappingConfig()
     if conf.get("preset"):
@@ -115,13 +136,21 @@ def mapping_config(conf: dict, gdir: str, lanes: List[dict], out: str,
     cfg.index_file_path = os.path.join(gdir, "index")
     cfg.read_file1_paths = [lane["r1"] for lane in lanes]
     cfg.read_file2_paths = [lane["r2"] for lane in lanes]
-    cfg.mapping_output_file_path = out
+    bcs, whitelist = barcode_inputs(lanes)
+    if bcs:
+        # as the CLI's -b does: barcoded reads are single-cell data
+        cfg.barcode_file_paths = bcs
+        cfg.is_bulk_data = False
+    if whitelist:
+        cfg.barcode_whitelist_file_path = whitelist
     cfg.use_device = True
     cfg.torch_device = device
     for key, value in {**conf.get("options", {}), **(options or {})}.items():
         if not hasattr(cfg, key):
             raise KeyError(f"no mapping option {key!r}")
         setattr(cfg, key, value)
+    cfg.mapping_output_file_path = os.path.join(
+        rdir, "out." + cfg.output_format)
     return cfg
 
 
@@ -180,6 +209,8 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float,
 
     cell = spec.cell(cell_name)
     conf = spec.config(cell["config"])
+    # resolved first: a check that is misnamed fails before the mapping
+    check = spec.checker(conf).check
     mix = spec.mix(cell["traffic"])
     data = os.path.join(spec.base, "_data")
     threads = os.cpu_count() or 1
@@ -189,9 +220,8 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float,
     pairs = sum(lane["pairs"] for lane in lanes)
     rdir = os.path.join(data, "runs", cell_name)
     os.makedirs(rdir, exist_ok=True)
-    out = os.path.join(rdir, "out." + ("pairs" if conf.get("preset") == "hic"
-                                       else "bed"))
-    cfg = mapping_config(conf, gdir, lanes, out, device, options)
+    cfg = mapping_config(conf, gdir, lanes, rdir, device, options)
+    out = cfg.mapping_output_file_path
     acts = [ProfilerActivity.CUDA if device == "cuda"
             else ProfilerActivity.CPU]
     if not trace and any(m["source"] == "device_trace"
@@ -288,7 +318,6 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float,
                               record["kernel_bytes"][k][1]]
                           for k in record["kernel_bytes"]}))
         del prof, inst
-    loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
     from chromap_tpu_torch.ops import device_seed
     del pipeline
@@ -296,13 +325,11 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    if loaded:
-        raise ImportError("the run imported " + ", ".join(loaded))
 
-    checks, info = refcheck.check(
+    checks, info = check(
         conf, os.path.join(gdir, "ref.fa"), os.path.join(gdir, "refindex"),
         lanes, out, seed)
-    log("reference: " + json.dumps(info))
+    log("output check: " + json.dumps(info))
 
     window = {"reads": reads, "wall_s": wall, "cpu_s": cpu,
               "kernel_s": kernel_s, "setup_s": setup_s}
@@ -324,4 +351,8 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float,
                                "idle_gaps": t["idle_gaps"]}
     result["checks"] = {k: {"value": v, "limit": 0}
                         for k, v in checks.items()}
+    # last, so that what the check and the metric readers load counts too
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    if loaded:
+        raise ImportError("the run imported " + ", ".join(loaded))
     return result

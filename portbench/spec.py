@@ -5,6 +5,22 @@ A cell names a configuration (its `file`) and a traffic mix (the file
 `traffic/<generator>.py`); a per-layer metric is read by
 `metrics/<metric>.py`. Adding a configuration, a mix or a metric is adding
 its file and its entry: nothing here changes.
+
+What a configuration may bring, each as files of its own:
+- a generator (`traffic/<generator>.py`, named by its mix), whose
+  `write_lanes(out_dir, fasta, mix, seed)` returns one dict a lane: the
+  mates `r1`, `r2` and the lane's `pairs`, and optionally a barcode read
+  `bc` (in every lane or in none) and a barcode `whitelist` (the same file
+  in every lane). The harness hands `bc` to the program as its `-b` files
+  (a single-cell run) and `whitelist` as its `--barcode-whitelist`.
+- an output check (`checks/<name>.py`, named by the configuration's
+  `"check": "<name>"`): `check(conf, fasta, index_dir, lanes, out_path,
+  seed)` returns (checks, info), `checks` a count of lines or pairs at
+  fault for each name, each with limit 0, always with
+  `compared_under_half` and `output_absent`. A check module may import
+  and wrap `portbench/reference/` (the plain reference) and brings any
+  reference it needs besides as new files. A configuration with no
+  `"check"` is judged by `reference/check.py`.
 """
 
 from __future__ import annotations
@@ -16,6 +32,9 @@ from types import ModuleType
 from typing import List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the folders whose files are found by a name in BENCHMARK.json, a mix or
+# a configuration
+NAMED_FOLDERS = ("configs", "traffic", "metrics", "checks")
 
 
 class Spec:
@@ -48,6 +67,14 @@ class Spec:
     def generator(self, mix: dict) -> ModuleType:
         return _load(os.path.join(self.base, "traffic",
                                   mix["generator"] + ".py"))
+
+    def checker(self, conf: dict) -> ModuleType:
+        """The module whose `check` judges a run of configuration `conf`:
+        `checks/<conf["check"]>.py`, or `reference/check.py`."""
+        if "check" in conf:
+            return _load(os.path.join(self.base, "checks",
+                                      conf["check"] + ".py"))
+        return importlib.import_module("portbench.reference.check")
 
     def metrics(self, cell: str, trace: bool) -> List[dict]:
         """The metrics a run of `cell` reports: its end-to-end metrics

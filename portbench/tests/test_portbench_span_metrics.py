@@ -11,7 +11,6 @@ import pytest
 from portbench.spec import Spec
 
 from conftest import HERE
-from test_portbench_metrics import WANT as WANT_RECORD_BED
 
 with open(os.path.join(HERE, "record_spans.json")) as f:
     RECORD = json.load(f)
@@ -34,14 +33,6 @@ LEGACY = {
     "native.finish_ms_per_chunk": (0.6 + 0.6) * 1e3 / (20 + 20),
     "seeder.submit_ms_per_chunk": (0.2 + 0.2) * 1e3 / (20 + 20),
 }
-
-
-def test_every_metric_has_a_case_here_or_in_record_bed():
-    names = {m["name"] for m in Spec().data["per_layer"]}
-    assert set(WANT) <= names
-    assert not set(WANT) & set(WANT_RECORD_BED)
-    assert set(WANT) | set(WANT_RECORD_BED) | {"myers_dropoff_roofline"} \
-        == names
 
 
 @pytest.mark.parametrize("name", sorted(WANT) + sorted(LEGACY))

@@ -70,6 +70,7 @@ def test_every_entry_resolves_to_its_files():
         conf = spec.config(c["name"])
         assert set(c["reduced"]) == set(conf["reduced"])
         assert {"genome", "options", "control"} <= set(conf)
+        assert callable(spec.checker(conf).check)
     for w in spec.data["workloads"]:
         mix = spec.mix(w["traffic"])
         assert hasattr(spec.generator(mix), "write_lanes")
